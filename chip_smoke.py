@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``sls_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # one card; exits nonzero without one
+    python3 chip_smoke.py --device cpu    # rehearsal: tiny size, plain versions
+
+Phases:
+  1. device and build: the card's name and power limit, the torch / CUDA
+     versions and TF32 flags (both off), and the nvcc build of every
+     kernel source with its seconds;
+  2. each kernel against its plain PyTorch version at the flagship
+     shapes (N = 36*201, D 1024, M 4096, k 128), timed with CUDA events
+     beside its plain version, a PyTorch library call computing the same
+     function (a yardstick only; the port never calls it) and its bound;
+  3. the main path at full width: the flagship Detector (24 layers,
+     1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
+     random weights, scored through make_eval_step and produce_scores
+     over batches of 36 synthetic utterances on the int16 wire; launch
+     counters are zeroed just before and read just after, and every
+     kernel must have launched; the kernel path is held against the
+     plain versions end to end on a small input; utts/s of the eval
+     step and of the score() path;
+  4. serving: a BatchingEngine over build_scorer_from_params answers a
+     partial batch and more than one batch, each score equal to the
+     offline score() of the same audio at the same batch shape.
+
+Any failed check raises and the script exits nonzero.  The line before
+the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
+line with the card and the throughputs; the last line is
+``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
+``--profile`` adds the eval step's device time by kernel
+(torch.profiler) as a ``{"profile": ...}`` line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+# data-sheet peaks of one H100 SXM at its 700 W limit
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+ENCODE_TOL = 1e-3  # same bf16 operands, fp32 sums over D=1024 in another order
+DECODE_TOL = 1e-4  # fp32 sums of ~k terms in another order
+E2E_TOL = 1e-3     # log-probs through kernels vs plain versions
+SERVE_TOL = 1e-4   # served vs offline P(bonafide) at the same batch shape
+
+FULL_BATCHES = 3   # main-path run: three full batches and a short tail
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def gpu_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def timed(torch, fn, device, iters: int) -> float:
+    """Mean milliseconds per call after warm-up: CUDA events on the card,
+    the host clock on the CPU rehearsal."""
+    for _ in range(2):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bound(bytes_moved: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(torch, tk, device, shape, iters):
+    n, d, m, k = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(n, d, device=device, generator=g)
+    w_dec = torch.rand(m, d, device=device, generator=g) * 2 - 1
+    w_dec = w_dec / torch.linalg.vector_norm(w_dec, dim=1, keepdim=True)
+    w_enc = w_dec.t().contiguous()
+    b_enc = torch.randn(m, device=device, generator=g) * 0.1
+    b_dec = torch.randn(d, device=device, generator=g) * 0.1
+    f32 = 4
+
+    # kernel 1: encode + exact top-k
+    codes = tk.sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k)
+    sync(torch, device)
+    acts = tk.sae_encode_acts_plain(x, w_enc, b_enc, b_dec)
+    ref = tk.topk_threshold_mask_plain(acts, k)
+    kept, kept_ref = codes > 0, ref > 0
+    both = kept & kept_ref
+    err1 = float((codes[both] - ref[both]).abs().max())
+    kth = torch.where(kept_ref, acts, torch.inf).amin(-1, keepdim=True)
+    flipped = kept ^ kept_ref
+    flip_gap = float((acts - kth).abs()[flipped].max()) if bool(flipped.any()) else 0.0
+    log(f"encode_topk: max_abs_err {err1:.3e} on the common support; "
+        f"{int(flipped.sum())} support flips, all within {flip_gap:.3e} of the threshold "
+        f"(tolerance {ENCODE_TOL})")
+    check(err1 <= ENCODE_TOL, "encode kernel values agree with the plain version")
+    check(flip_gap <= ENCODE_TOL, "encode kernel support differs only at near-ties")
+    check(bool((kept.sum(-1) >= k).all()), "every row keeps at least k entries")
+
+    w_bf16 = w_enc.to(torch.bfloat16)
+
+    def library_encode():
+        a = torch.relu(torch.addmm(b_enc.to(torch.bfloat16), (x - b_dec).to(torch.bfloat16),
+                                   w_bf16).float())
+        t = torch.topk(a, k, dim=-1).values[:, -1:]
+        return a * (a >= t)
+
+    ops1 = 2.0 * n * d * m
+    bytes1 = f32 * (x.numel() + w_enc.numel() + b_enc.numel() + b_dec.numel() + n * m)
+    bound1, by1 = bound(bytes1, ops1, PEAK_BF16_FLOPS)
+    enc = {
+        "name": "sae_encode_topk_fused", "route": "cuda",
+        "source": "sls_tpu_torch/kernels/csrc/sae_encode_topk.cu",
+        "replaces": "sls_tpu/kernels/sae_kernels.py:143",
+        "max_abs_err": err1, "tolerance": ENCODE_TOL,
+        "ms": timed(torch, lambda: tk.sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k),
+                    device, iters),
+        "plain_ms": timed(torch, lambda: tk.sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k),
+                          device, max(iters // 4, 1)),
+        "library_ms": timed(torch, library_encode, device, iters),
+        "bound_ms": bound1, "bound_by": by1, "ops": ops1, "bytes": bytes1,
+    }
+
+    # kernel 2: decode of the plain version's codes
+    recon = tk.sae_decode_fused(ref, w_dec, b_dec)
+    sync(torch, device)
+    recon_ref = tk.sae_decode_fused_plain(ref, w_dec, b_dec)
+    err2 = float((recon - recon_ref).abs().max())
+    log(f"decode: max_abs_err {err2:.3e} (tolerance {DECODE_TOL})")
+    check(err2 <= DECODE_TOL, "decode kernel agrees with the plain version")
+    nnz = int((ref != 0).sum())
+    ops2 = 2.0 * nnz * d  # the sparse product these codes need
+    bytes2 = f32 * (ref.numel() + w_dec.numel() + b_dec.numel() + n * d)
+    bound2, by2 = bound(bytes2, ops2, PEAK_FP32_FLOPS)
+    dec = {
+        "name": "sae_decode_fused", "route": "cuda",
+        "source": "sls_tpu_torch/kernels/csrc/sae_decode.cu",
+        "replaces": "sls_tpu/kernels/sae_kernels.py:440",
+        "max_abs_err": err2, "tolerance": DECODE_TOL,
+        "ms": timed(torch, lambda: tk.sae_decode_fused(ref, w_dec, b_dec), device, iters),
+        "plain_ms": timed(torch, lambda: tk.sae_decode_fused_plain(ref, w_dec, b_dec),
+                          device, iters),
+        "library_ms": timed(torch, lambda: torch.addmm(b_dec, ref, w_dec), device, iters),
+        "bound_ms": bound2, "bound_by": by2, "ops": ops2, "bytes": bytes2, "nnz": nnz,
+    }
+    for row in (enc, dec):
+        row["kernel_ms"] = row["ms"]
+    return [enc, dec]
+
+
+def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
+    """Device time of ``reps`` eval steps by kernel name (torch.profiler's
+    device-side events), the SAE kernels' part of it, and the device's
+    busy share of the window's wall time (one stream: kernels do not
+    overlap, so their durations add)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch_wire)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(batch_wire)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    total_us = sum(by_name.values())
+    check(total_us > 0, "the profiler saw device time")
+    ours = {name: sum(us for key, us in by_name.items() if name in key)
+            for name in ("encode_gemm_kernel", "topk_select_kernel", "decode_kernel")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {
+        "steps": reps,
+        "wall_ms_per_step": wall_us / reps / 1e3,
+        "device_ms_per_step": total_us / reps / 1e3,
+        "device_busy_share": total_us / wall_us,
+        "kernel_names": len(by_name),
+        "sae_kernels_ms_per_step": {k: v / reps / 1e3 for k, v in ours.items()},
+        "top": [{"kernel": name[:100], "ms_per_step": us / reps / 1e3, "share": us / total_us}
+                for name, us in top],
+    }
+
+
+def synthetic_wavs(n: int, cut: int, seed: int) -> np.ndarray:
+    """Noise with a per-utterance tone, so utterances differ."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(cut, dtype=np.float32) / 16000.0
+    f = rng.uniform(100.0, 4000.0, size=(n, 1)).astype(np.float32)
+    wav = 0.1 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal((n, cut))
+    return wav.astype(np.float32)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the eval step's device time by kernel")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
+        return 2
+    if not (Path(__file__).resolve().parent / "sls_tpu_torch").is_dir():
+        # the port and its kernel sources must come from this checkout
+        print("chip_smoke: no sls_tpu_torch/ beside this script; run it from the repo",
+              file=sys.stderr)
+        return 2
+
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.data.audio import pad_or_tile
+    from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
+    from sls_tpu_torch.kernels import build
+    from sls_tpu_torch.kernels import sae_kernels as tk
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
+    from sls_tpu_torch.serve.engine import BatchingEngine
+    from sls_tpu_torch.serve.scorer import build_scorer_from_params
+    from sls_tpu_torch.train.loop import produce_scores
+    from sls_tpu_torch.train.steps import dequantize_wire, make_eval_step
+
+    device = torch.device(args.device)
+    on_card = device.type == "cuda"
+    t_start = time.perf_counter()
+
+    # -- phase 1: device and build ------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if on_card:
+        card = gpu_line()
+        log(card)  # name, power limit
+        t0 = time.perf_counter()
+        out_dir = build.build_all()
+        log(f"build: {len(build.sources())} sources with nvcc into {out_dir} "
+            f"in {time.perf_counter() - t0:.2f} s")
+        batch = 36
+        enc_cfg = C.XLSRConfig(dtype=torch.bfloat16)
+        sae_cfg = C.SAEConfig(activation_dim=1024, dict_size=4096, k=128, use_pallas=True)
+        cut = 64600
+    else:
+        log("rehearsal on the CPU: plain versions at a tiny size; no device result")
+        batch = 4
+        enc_cfg = C.tiny_xlsr_config(dtype=torch.bfloat16)
+        sae_cfg = C.SAEConfig(activation_dim=64, dict_size=256, k=32, use_pallas=True)
+        cut = 4000
+    cfg = C.ModelConfig(encoder=enc_cfg, sae=sae_cfg)
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
+    frames = enc_cfg.num_frames(cut)
+
+    # -- phase 2: kernels against their plain versions ----------------------
+    shape = (batch * frames, sae_cfg.activation_dim, sae_cfg.dict_size, sae_cfg.k)
+    log(f"phase 2: kernels at N={shape[0]} D={shape[1]} M={shape[2]} k={shape[3]}")
+    rows = phase_kernels(torch, tk, device, shape, iters=20 if on_card else 2)
+
+    # -- phase 3: the main path ---------------------------------------------
+    log(f"phase 3: flagship detector, {enc_cfg.encoder_layers} layers, "
+        f"{enc_cfg.embed_dim}/{enc_cfg.ffn_dim}, {enc_cfg.num_heads} heads, "
+        f"dict {sae_cfg.dict_size}, k {sae_cfg.k}, batch {batch}, int16 wire")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = Detector(cfg, device=device, generator=gen)
+    n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
+    wavs = synthetic_wavs(n_utts, cut, args.seed)
+    wire = to_wire(wavs, "int16")
+    loader = ArrayLoader(wire, None, batch_size=batch)
+    step = make_eval_step(model, device=device)
+    step(wire[:batch])  # one-time setup (library handles) outside the counted run
+    sync(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    tk.sae_encode_topk_fused.launches = 0
+    tk.sae_decode_fused.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "scores.txt"
+        t0 = time.perf_counter()
+        written = produce_scores(step, loader, path)
+        t_scores = time.perf_counter() - t0
+        launches = {"sae_encode_topk_fused": tk.sae_encode_topk_fused.launches,
+                    "sae_decode_fused": tk.sae_decode_fused.launches}
+        ids, scores = read_score_file(path)
+    n_batches = loader.num_batches()
+    log(f"produce_scores: {written} lines in {t_scores:.3f} s over {n_batches} batches; "
+        f"launches {launches}")
+    check(written == n_utts and len(ids) == n_utts, "one score line per utterance")
+    check(ids == [f"utt_{i}" for i in range(n_utts)], "score lines in utterance order")
+    check(bool(np.all(np.isfinite(scores))), "every score is finite")
+    check(bool(np.all((scores >= 0) & (scores <= 1))), "every score lies in [0, 1]")
+    if on_card:
+        for name, count in launches.items():
+            check(count == n_batches, f"{name} launched once per batch ({count})")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    # end to end on a small input: kernels vs plain versions, same features
+    small = torch.from_numpy(wire[:2]).to(device)
+    with torch.inference_mode():
+        feats = model.encoder(dequantize_wire(small)).float()
+        sae = model.sae
+        flat = feats.reshape(-1, feats.shape[-1])
+        c_k = tk.sae_encode_topk_fused(flat, sae.W_enc, sae.b_enc, sae.b_dec, sae_cfg.k)
+        c_p = tk.sae_encode_topk_fused_plain(flat, sae.W_enc, sae.b_enc, sae.b_dec, sae_cfg.k)
+        lp_k = model.classifier(c_k.reshape(2, frames, -1))
+        lp_p = model.classifier(c_p.reshape(2, frames, -1))
+        r_k = tk.sae_decode_fused(c_k, sae.W_dec, sae.b_dec)
+        r_p = tk.sae_decode_fused_plain(c_k, sae.W_dec, sae.b_dec)
+    e2e = float((lp_k - lp_p).abs().max())
+    loss_k, loss_p = float(((r_k - flat) ** 2).mean()), float(((r_p - flat) ** 2).mean())
+    log(f"end to end (2 utterances): log_probs kernels vs plain max_abs {e2e:.3e}; "
+        f"sae_loss {loss_k:.6f} vs {loss_p:.6f}")
+    check(e2e <= E2E_TOL, "log-probs through the kernels agree with the plain versions")
+    check(math.isclose(loss_k, loss_p, rel_tol=1e-4), "sae_loss agrees")
+
+    def throughput(fn, reps):
+        batch_wire = wire[:batch]
+        fn(batch_wire)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(batch_wire)
+        sync(torch, device)
+        return reps * batch / (time.perf_counter() - t0), out
+
+    def score_only(w):
+        with torch.inference_mode():
+            return model.score(dequantize_wire(torch.from_numpy(w).to(device)))
+
+    reps = 10 if on_card else 1
+    ups_eval, _ = throughput(step, reps)
+    ups_score, _ = throughput(score_only, reps)
+    log(f"throughput at batch {batch}: eval step {ups_eval:.1f} utts/s, "
+        f"score() {ups_score:.1f} utts/s")
+    if on_card:
+        log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if args.profile:
+            log(json.dumps({"profile": profile_step(torch, step, wire[:batch])}))
+
+    # -- phase 4: serving -----------------------------------------------------
+    bucket = max(batch // 3, 2)
+    n_partial = n_tail = bucket // 2  # both fit the bucket shape
+    _, score_fn, _ = build_scorer_from_params(
+        exp, model.state_dict(), batch_size=batch, wire_dtype="int16", device=device,
+        bucket_sizes=(bucket,))
+    rng = np.random.default_rng(args.seed + 1)
+    clips = [wavs[i % n_utts][: int(rng.integers(cut // 4, cut))]
+             for i in range(n_partial + batch + n_tail)]
+
+    def offline(idx, shape):
+        rows_ = [pad_or_tile(clips[i], cut) for i in idx]
+        rows_ += [rows_[0]] * (shape - len(rows_))
+        w = torch.from_numpy(to_wire(np.stack(rows_), "int16")).to(device)
+        with torch.inference_mode():
+            return log_probs_to_scores(model.score(dequantize_wire(w)))[: len(idx)]
+
+    enc_before = tk.sae_encode_topk_fused.launches
+    partial = list(range(n_partial))
+    multi = list(range(n_partial, len(clips)))
+    with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
+                        bucket_sizes=(bucket,), max_wait_ms=500) as engine:
+        got_partial = np.array([f.result(timeout=120) for f in
+                                [engine.submit(clips[i]) for i in partial]])
+        got_multi = np.array([f.result(timeout=120) for f in
+                              [engine.submit(clips[i]) for i in multi]])
+        stats = engine.stats().to_dict()
+    want_partial = offline(partial, bucket)
+    want_multi = np.concatenate([offline(multi[:batch], batch), offline(multi[batch:], bucket)])
+    d1 = float(np.abs(got_partial - want_partial).max())
+    d2 = float(np.abs(got_multi - want_multi).max())
+    log(f"serving: {len(partial)} + {len(multi)} requests; served vs offline max_abs "
+        f"{d1:.3e} / {d2:.3e} (tolerance {SERVE_TOL}); stats {json.dumps(stats)}")
+    check(stats["requests"] == len(clips) and stats["batches"] == 3,
+          "requests grouped into a bucket batch, a full batch and a bucket batch")
+    check(d1 <= SERVE_TOL and d2 <= SERVE_TOL, "served scores equal offline scores")
+    if on_card:
+        check(tk.sae_encode_topk_fused.launches - enc_before >= 3,
+              "serving went through the encode kernel")
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if not on_card:
+        log("rehearsal passed (CPU, plain versions): not a device result")
+        return 0
+    kernels = [{key: row[key] for key in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance")}
+        for row in rows]
+    print(json.dumps({"run": {"card": card, "batch": batch, "layers": enc_cfg.encoder_layers,
+                              "eval_utts_per_s": ups_eval, "score_utts_per_s": ups_score}}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

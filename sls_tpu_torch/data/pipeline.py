@@ -1,0 +1,68 @@
+"""Fixed-shape batches (own copy of the in-memory parts of
+``sls_tpu/data/pipeline.py``): ``Batch``, ``to_wire`` and
+``ArrayLoader``.  The file-backed loader and FLAC decoding are not
+ported yet."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from sls_tpu_torch.data.mulaw import mulaw_encode
+
+
+@dataclass
+class Batch:
+    wav: np.ndarray  # [B, cut] float32 (or the int16 / mu-law wire)
+    utt_ids: List[str]
+    labels: Optional[np.ndarray]  # [B] int64 or None
+    valid: np.ndarray  # [B] bool — False on repeated tail-fill rows
+
+
+def to_wire(wavs: np.ndarray, wire_dtype: str) -> np.ndarray:
+    """Decoded float32 audio -> the host->device wire format:
+    ``float32`` as is; ``int16`` round(f * 32768), lossless for 16-bit
+    sources; ``mulaw`` 8-bit companding, lossy."""
+    if wire_dtype == "float32":
+        return wavs
+    if wire_dtype == "int16":
+        return np.clip(
+            np.rint(wavs.astype(np.float32) * 32768.0), -32768, 32767
+        ).astype(np.int16)
+    if wire_dtype == "mulaw":
+        return mulaw_encode(wavs)
+    raise ValueError(f"unknown wire_dtype: {wire_dtype!r}")
+
+
+class ArrayLoader:
+    """In-memory loader: fixed-shape batches in order, the short tail
+    batch filled by repetition and masked by ``valid``.  (Shuffling
+    comes with the training slice.)"""
+
+    def __init__(self, wavs: np.ndarray, labels: Optional[np.ndarray],
+                 utt_ids: Optional[List[str]] = None, batch_size: int = 8):
+        self.wavs = wavs
+        self.labels = labels
+        self.utt_ids = utt_ids or [f"utt_{i}" for i in range(len(wavs))]
+        self.batch_size = batch_size
+
+    def num_batches(self) -> int:
+        return (len(self.wavs) + self.batch_size - 1) // self.batch_size
+
+    def epoch(self, epoch: int = 0) -> Iterator[Batch]:
+        n, bs = len(self.wavs), self.batch_size
+        for lo in range(0, n, bs):
+            sel = np.arange(lo, min(lo + bs, n))
+            valid = np.ones(bs, bool)
+            if len(sel) < bs:
+                valid[len(sel):] = False
+                reps = int(np.ceil(bs / len(sel)))
+                sel = np.tile(sel, reps)[:bs]
+            yield Batch(
+                wav=self.wavs[sel],
+                utt_ids=[self.utt_ids[i] for i in sel],
+                labels=None if self.labels is None else self.labels[sel],
+                valid=valid,
+            )

@@ -1,0 +1,271 @@
+"""XLS-R (wav2vec2) encoder, counterpart of ``sls_tpu/encoder/xlsr.py``.
+
+Inference path only, with the reference's numerics: matmuls and convs in
+``config.dtype`` (bf16 at the flagship) with fp32 LayerNorm and softmax
+islands; LayerNorm in flax's fast-variance form; GELU computed in fp32
+and cast back, tanh-approximate iff the dtype is bf16.  Public modules
+take and return ``[B, T, C]``; convs run channels-first internally.
+
+Not ported yet (ROADMAP): the int8, flash, fused-attention, fused
+front-end, einsum pos-conv and sequence-parallel branches.  Configs that
+select them raise instead of silently taking another path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sls_tpu_torch.config import XLSRConfig
+
+
+def fp32_layer_norm(xf: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` fast-variance math over the trailing axis
+    (E[x^2] - E[x]^2 clamped at 0), on fp32 input."""
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = (xf * xf).mean(-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    return (xf - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _fp32_group_norm_per_channel(x, scale, bias, eps=1e-5):
+    """fairseq Fp32GroupNorm with num_groups == num_channels on [B, T, C]:
+    per-(batch, channel) norm over time, fast-variance form."""
+    xf = x.float()
+    mean = xf.mean(1, keepdim=True)
+    mean2 = (xf * xf).mean(1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    return ((xf - mean) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def gelu_fp32(h: torch.Tensor, approximate: bool, dtype: torch.dtype) -> torch.Tensor:
+    return F.gelu(h.float(), approximate="tanh" if approximate else "none").to(dtype)
+
+
+class Fp32LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 regardless of the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fp32_layer_norm(x.float(), self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
+    ``dtype``; parameters stay fp32.  weight is [out, in]."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv(dtype=...)`` on channels-first input: operands cast
+    to ``dtype``.  weight is [out, in / groups, kernel]."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.stride, self.padding, self.groups, self.dtype = stride, padding, groups, dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv1d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding, 1, self.groups)
+
+
+class ConvFeatureExtractor(nn.Module):
+    """Strided 1-D conv waveform front-end: [B, samples] -> [B, T, C].
+
+    'layer_norm' mode (XLS-R) normalises after every conv; 'default'
+    group-norms only the first layer."""
+
+    def __init__(self, config: XLSRConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.extractor_mode not in ("layer_norm", "default"):
+            raise ValueError(f"unknown extractor_mode {cfg.extractor_mode!r}")
+        self.conv = nn.ModuleList()
+        self.norm = nn.ModuleList()
+        in_ch = 1
+        for i, (dim, kernel, stride) in enumerate(cfg.conv_layers):
+            self.conv.append(Conv1d(in_ch, dim, kernel, stride=stride,
+                                    bias=cfg.conv_bias, dtype=cfg.dtype, device=device))
+            if cfg.extractor_mode == "layer_norm" or i == 0:
+                self.norm.append(Fp32LayerNorm(dim, device=device))
+            in_ch = dim
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = wav[:, :, None].to(cfg.dtype)  # [B, samples, 1]
+        for i, conv in enumerate(self.conv):
+            # [B, T, C] views over channels-first storage between layers
+            h = conv(h.transpose(1, 2)).transpose(1, 2)
+            if cfg.extractor_mode == "layer_norm":
+                h = self.norm[i](h)
+            elif i == 0:
+                h = _fp32_group_norm_per_channel(h, self.norm[0].weight, self.norm[0].bias)
+            h = gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
+        return h
+
+
+class PositionalConv(nn.Module):
+    """Grouped conv positional embedding: kernel conv_pos, groups
+    conv_pos_groups, padding conv_pos // 2 on each side with the last
+    frame dropped for an even kernel (fairseq SamePad), then GELU."""
+
+    def __init__(self, config: XLSRConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.conv = Conv1d(cfg.embed_dim, cfg.embed_dim, cfg.conv_pos,
+                           padding=cfg.conv_pos // 2, groups=cfg.conv_pos_groups,
+                           dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        if cfg.conv_pos % 2 == 0:
+            h = h[:, :-1, :]
+        return gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention as matmuls with an fp32 softmax (the
+    plain path of the reference; no library attention kernel)."""
+
+    def __init__(self, config: XLSRConfig, device=None):
+        super().__init__()
+        self.config = config
+        C, dt = config.embed_dim, config.dtype
+        self.q_proj = Dense(C, C, dt, device)
+        self.k_proj = Dense(C, C, dt, device)
+        self.v_proj = Dense(C, C, dt, device)
+        self.out_proj = Dense(C, C, dt, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        B, T, C = x.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        if cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
+            raise NotImplementedError(
+                "long-T attention runs the flash_attention_long kernel in the "
+                "reference, not ported yet (ROADMAP §2)"
+            )
+        q = self.q_proj(x).reshape(B, T, H, D)
+        k = self.k_proj(x).reshape(B, T, H, D)
+        v = self.v_proj(x).reshape(B, T, H, D)
+        scores = torch.einsum("bthd,bshd->bhts", q * (D ** -0.5), k)
+        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
+        return self.out_proj(ctx)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LN (XLS-R) or post-LN transformer block."""
+
+    def __init__(self, config: XLSRConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.activation not in ("gelu", "relu"):
+            raise ValueError(f"unknown activation {cfg.activation!r}")
+        self.self_attn = SelfAttention(cfg, device)
+        self.self_attn_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
+        self.final_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
+        self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device)
+        self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device)
+
+    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = self.fc1(h)
+        if cfg.activation == "gelu":
+            h = gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
+        else:
+            h = torch.relu(h.float()).to(cfg.dtype)
+        return self.fc2(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.config.layer_norm_first:
+            x = x + self.self_attn(self.self_attn_layer_norm(x))
+            return x + self._ffn(self.final_layer_norm(x))
+        x = self.self_attn_layer_norm(x + self.self_attn(x))
+        return self.final_layer_norm(x + self._ffn(x))
+
+
+_UNPORTED = ("fused_attention", "int8_serving", "fused_frontend",
+             "grouped_conv_einsum", "seq_axis")
+
+
+class XLSREncoder(nn.Module):
+    """waveform [B, samples] -> [B, T, embed_dim]: conv features, fp32
+    LayerNorm, projection, positional conv, transformer layers, final
+    LayerNorm (pre-LN mode).  ``return_hidden_states=True`` also returns
+    every layer's output (before the final LayerNorm)."""
+
+    def __init__(self, config: XLSRConfig, device=None):
+        super().__init__()
+        for name in _UNPORTED:
+            if getattr(config, name):
+                raise NotImplementedError(
+                    f"XLSRConfig.{name} selects a path not ported yet (ROADMAP)")
+        cfg = self.config = config
+        c0 = cfg.conv_layers[-1][0]
+        self.feature_extractor = ConvFeatureExtractor(cfg, device)
+        self.post_extract_norm = Fp32LayerNorm(c0, device=device)
+        self.post_extract_proj = Dense(c0, cfg.embed_dim, cfg.dtype, device)
+        self.pos_conv = PositionalConv(cfg, device)
+        self.layers = nn.ModuleList(
+            TransformerLayer(cfg, device) for _ in range(cfg.encoder_layers))
+        self.encoder_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
+
+    def forward(self, wav: torch.Tensor, return_hidden_states: bool = False):
+        cfg = self.config
+        feats = self.post_extract_norm(self.feature_extractor(wav))
+        x = self.post_extract_proj(feats)
+        x = x + self.pos_conv(x)
+        if not cfg.layer_norm_first:
+            x = self.encoder_layer_norm(x)
+        hidden_states: List[torch.Tensor] = []
+        for layer in self.layers:
+            x = layer(x)
+            if return_hidden_states:
+                hidden_states.append(x)
+        if cfg.layer_norm_first:
+            x = self.encoder_layer_norm(x)
+        if return_hidden_states:
+            return x, hidden_states
+        return x
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Seeded random init in the reference's scheme: lecun-scaled normal
+    weights (std 1/sqrt(fan_in)), zero biases, unit LayerNorm scales."""
+    for mod in module.modules():
+        if isinstance(mod, (Dense, Conv1d)):
+            fan_in = mod.weight[0].numel()
+            mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, Fp32LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()

@@ -1,0 +1,29 @@
+"""Classification head, counterpart of ``sls_tpu/heads/classifier.py``.
+
+``MeanPoolClassifier``: time-mean pooling, then LayerNorm (eps 1e-6, the
+flax default; fast-variance form) -> Linear(d, 256) -> ReLU ->
+Linear(256, 2), log-softmax outputs, all in fp32.  Class 1 = bonafide.
+Dropout is an identity at inference and is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sls_tpu_torch.encoder.xlsr import Dense, Fp32LayerNorm
+
+
+class MeanPoolClassifier(nn.Module):
+    def __init__(self, in_dim: int, hidden_dim: int = 256, num_classes: int = 2,
+                 device=None):
+        super().__init__()
+        self.norm = Fp32LayerNorm(in_dim, eps=1e-6, device=device)
+        self.fc1 = Dense(in_dim, hidden_dim, torch.float32, device)
+        self.fc2 = Dense(hidden_dim, num_classes, torch.float32, device)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """features: [B, T, D] -> log-probabilities [B, num_classes]."""
+        pooled = features.float().mean(dim=1)
+        h = torch.relu(self.fc1(self.norm(pooled)))
+        return torch.log_softmax(self.fc2(h), dim=-1)

@@ -1,0 +1,61 @@
+"""The port stands alone: no JAX, flax, optax or sls_tpu in it, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "sls_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_BLOCKED_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu)\b(?!_torch)", re.M)
+_REFERENCE_NAME = re.compile(r"\bsls_tpu\.")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sls_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil\n"
+        "import sls_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(sls_tpu_torch.__path__, 'sls_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_imports(path):
+    text = path.read_text()
+    assert not _BLOCKED_IMPORT.search(text), path
+    assert not _REFERENCE_NAME.search(text), path
+
+
+def test_entry_points_default_to_the_card():
+    from sls_tpu_torch.config import ExperimentConfig, ModelConfig, SAEConfig, tiny_xlsr_config
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.serve.scorer import build_scorer_from_params
+    from sls_tpu_torch.train.steps import make_eval_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg = ModelConfig(encoder=tiny_xlsr_config(),
+                      sae=SAEConfig(activation_dim=64, dict_size=256, k=32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Detector(cfg)
+    model = Detector(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_eval_step(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_scorer_from_params(ExperimentConfig(model=cfg), model.state_dict())
