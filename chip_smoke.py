@@ -9,32 +9,38 @@ Phases:
      versions and TF32 flags (both off), and the nvcc build of every
      kernel source with its seconds;
   2. each kernel against its plain PyTorch version at the flagship
-     shapes (N = 36*201, D 1024, M 4096, k 128), timed with CUDA events
-     beside its plain version, a PyTorch library call computing the same
-     function (a yardstick only; the port never calls it) and its bound;
+     shapes (N = 36*201, D 1024, M 4096, k 128, window 8), timed with
+     CUDA events beside its plain version, a PyTorch library call
+     computing the same function where there is one (a yardstick only;
+     the port never calls it) and its bound;
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
      over batches of 36 synthetic utterances on the int16 wire; launch
-     counters are zeroed just before and read just after, and every
-     kernel must have launched; the kernel path is held against the
-     plain versions end to end on a small input; utts/s of the eval
-     step and of the score() path;
+     counters are zeroed just before and read just after, and each
+     kernel of the path must have launched once per batch and no other
+     kernel at all; the kernel path is held against the plain versions
+     end to end on a small input; utts/s of the eval step and of the
+     score() path;
   4. serving: a BatchingEngine over build_scorer_from_params answers a
      partial batch and more than one batch, each score equal to the
-     offline score() of the same audio at the same batch shape.
+     offline score() of the same audio at the same batch shape;
+  5. the window-overlap path, as phases 3 and 4: the same Detector with
+     the window-overlap SAE (window 8), holding the flagship's weights,
+     through sae_encode_fused, window_vote_fused and sae_decode_fused.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
 line with the card and the throughputs; the last line is
 ``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
-``--profile`` adds the eval step's device time by kernel
+``--profile`` adds each path's eval-step device time by kernel
 (torch.profiler) as a ``{"profile": ...}`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -50,10 +56,25 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-ENCODE_TOL = 1e-3  # same bf16 operands, fp32 sums over D=1024 in another order
-DECODE_TOL = 1e-4  # fp32 sums of ~k terms in another order
-E2E_TOL = 1e-3     # log-probs through kernels vs plain versions
-SERVE_TOL = 1e-4   # served vs offline P(bonafide) at the same batch shape
+ENCODE_TOL = 1e-3      # same bf16 operands, fp32 sums over D=1024 in another order
+ENCODE_F32_TOL = 1e-4  # fp32 operands, fp32 sums over D=1024 in another order
+DECODE_TOL = 1e-4      # fp32 sums of ~k terms in another order
+TOPK_TOL = 0.0         # the same 31-step search on the same bits: exact
+VOTE_TOL = 0.0         # the same bf16 steps, chunk sums in the same order: exact
+E2E_TOL = 1e-3         # log-probs through kernels vs plain versions
+SERVE_TOL = 1e-4       # served vs offline P(bonafide) at the same batch shape
+WINDOW = 8             # the window-overlap variant's window (SAEConfig default)
+
+KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
+           "window_vote_fused", "sae_decode_fused")
+# each path's kernels: launched once per batch; every other kernel never
+PATH_KERNELS = {
+    "flagship": ("sae_encode_topk_fused", "sae_decode_fused"),
+    "window_overlap": ("sae_encode_fused", "window_vote_fused", "sae_decode_fused"),
+}
+# the hand-written kernels' names as the profiler shows them
+OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
+               "window_mask_kernel", "frame_vote_kernel", "decode_kernel")
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
 
@@ -105,7 +126,8 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 
 def phase_kernels(torch, tk, device, shape, iters):
-    n, d, m, k = shape
+    batch, frames, d, m, k = shape
+    n = batch * frames
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(n, d, device=device, generator=g)
     w_dec = torch.rand(m, d, device=device, generator=g) * 2 - 1
@@ -179,9 +201,91 @@ def phase_kernels(torch, tk, device, shape, iters):
         "library_ms": timed(torch, lambda: torch.addmm(b_dec, ref, w_dec), device, iters),
         "bound_ms": bound2, "bound_by": by2, "ops": ops2, "bytes": bytes2, "nnz": nnz,
     }
-    for row in (enc, dec):
+
+    # kernel 3: fp32 encode, no top-k
+    acts32 = tk.sae_encode_fused(x, w_enc, b_enc, b_dec)
+    sync(torch, device)
+    acts_ref = tk.sae_encode_fused_plain(x, w_enc, b_enc, b_dec)
+    err3 = float((acts32 - acts_ref).abs().max())
+    log(f"encode (fp32): max_abs_err {err3:.3e} (tolerance {ENCODE_F32_TOL})")
+    check(err3 <= ENCODE_F32_TOL, "fp32 encode kernel agrees with the plain version")
+    ops3 = 2.0 * n * d * m
+    bound3, by3 = bound(bytes1, ops3, PEAK_FP32_FLOPS)
+    enc32 = {
+        "name": "sae_encode_fused", "route": "cuda",
+        "source": "sls_tpu_torch/kernels/csrc/sae_encode.cu",
+        "replaces": "sls_tpu/kernels/sae_kernels.py:74",
+        "max_abs_err": err3, "tolerance": ENCODE_F32_TOL,
+        "ms": timed(torch, lambda: tk.sae_encode_fused(x, w_enc, b_enc, b_dec), device, iters),
+        "plain_ms": timed(torch, lambda: tk.sae_encode_fused_plain(x, w_enc, b_enc, b_dec),
+                          device, iters),
+        "library_ms": timed(torch, lambda: torch.relu(torch.addmm(b_enc, x - b_dec, w_enc)),
+                            device, iters),
+        "bound_ms": bound3, "bound_by": by3, "ops": ops3, "bytes": bytes1,
+    }
+
+    # kernel 4: the row top-k alone, on the plain fp32 encode's activations
+    sparse = tk.topk_sparsify(acts_ref, k)
+    sync(torch, device)
+    sparse_ref = tk.topk_threshold_mask_plain(acts_ref, k)
+    err4 = float((sparse - sparse_ref).abs().max())
+    log(f"topk_sparsify: max_abs_err {err4:.3e}, supports equal "
+        f"{bool(torch.equal(sparse > 0, sparse_ref > 0))} (tolerance {TOPK_TOL})")
+    check(err4 <= TOPK_TOL and torch.equal(sparse, sparse_ref),
+          "top-k kernel equals the plain version")
+
+    def library_topk():
+        t = torch.topk(acts_ref, k, dim=-1).values[:, -1:]
+        return torch.where(acts_ref >= t, acts_ref, 0.0)
+
+    ops4 = 2.0 * 31 * n * m  # 31 compare-and-count passes over the rows
+    bytes4 = f32 * 2 * n * m
+    bound4, by4 = bound(bytes4, ops4, PEAK_FP32_FLOPS)
+    topk = {
+        "name": "topk_sparsify", "route": "cuda",
+        "source": "sls_tpu_torch/kernels/csrc/sae_encode_topk.cu",
+        "replaces": "sls_tpu/kernels/sae_kernels.py:232",
+        "max_abs_err": err4, "tolerance": TOPK_TOL,
+        "ms": timed(torch, lambda: tk.topk_sparsify(acts_ref, k), device, iters),
+        "plain_ms": timed(torch, lambda: tk.topk_threshold_mask_plain(acts_ref, k),
+                          device, max(iters // 4, 1)),
+        "library_ms": timed(torch, library_topk, device, iters),
+        "bound_ms": bound4, "bound_by": by4, "ops": ops4, "bytes": bytes4,
+    }
+
+    # kernel 5: the vote merge of the plain fp32 encode's activations
+    acts3 = acts_ref.reshape(batch, frames, m)
+    voted = tk.window_vote_fused(acts3, k, WINDOW)
+    sync(torch, device)
+    voted_ref = tk.window_vote_fused_plain(acts3, k, WINDOW)
+    kept, kept_ref = voted > 0, voted_ref > 0
+    both = kept & kept_ref
+    flips = int((kept ^ kept_ref).sum())
+    err5 = float((voted[both] - voted_ref[both]).abs().max())
+    log(f"window_vote: max_abs_err {err5:.3e} on the common support; {flips} support "
+        f"flips of {int(kept_ref.sum())} kept entries (tolerance {VOTE_TOL}, no flips)")
+    check(flips == 0 and err5 <= VOTE_TOL, "vote kernel equals the plain version")
+    stride, n_windows, n_chunks = tk._window_geometry(frames, WINDOW)
+    # chunk sums, window sums, 15 compare-and-count passes over the
+    # window and frame rows, and the votes
+    ops5 = batch * m * (n_chunks * stride + n_windows + 2.0 * 15 * (n_windows + frames) + frames)
+    bytes5 = f32 * 2 * n * m
+    bound5, by5 = bound(bytes5, ops5, PEAK_FP32_FLOPS)
+    vote = {
+        "name": "window_vote_fused", "route": "cuda",
+        "source": "sls_tpu_torch/kernels/csrc/window_vote.cu",
+        "replaces": "sls_tpu/kernels/sae_kernels.py:330",
+        "max_abs_err": err5, "tolerance": VOTE_TOL, "support_flips": flips,
+        "ms": timed(torch, lambda: tk.window_vote_fused(acts3, k, WINDOW), device, iters),
+        "plain_ms": timed(torch, lambda: tk.window_vote_fused_plain(acts3, k, WINDOW),
+                          device, max(iters // 4, 1)),
+        "library_ms": None,  # no one PyTorch call computes this function
+        "bound_ms": bound5, "bound_by": by5, "ops": ops5, "bytes": bytes5,
+    }
+    rows = [enc, enc32, topk, vote, dec]
+    for row in rows:
         row["kernel_ms"] = row["ms"]
-    return [enc, dec]
+    return rows
 
 
 def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
@@ -209,7 +313,7 @@ def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
     total_us = sum(by_name.values())
     check(total_us > 0, "the profiler saw device time")
     ours = {name: sum(us for key, us in by_name.items() if name in key)
-            for name in ("encode_gemm_kernel", "topk_select_kernel", "decode_kernel")}
+            for name in OWN_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     return {
         "steps": reps,
@@ -237,7 +341,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also print the eval step's device time by kernel")
+                    help="also print each path's eval-step device time by kernel")
     args = ap.parse_args(argv)
 
     import torch
@@ -295,142 +399,185 @@ def main(argv=None) -> int:
     frames = enc_cfg.num_frames(cut)
 
     # -- phase 2: kernels against their plain versions ----------------------
-    shape = (batch * frames, sae_cfg.activation_dim, sae_cfg.dict_size, sae_cfg.k)
-    log(f"phase 2: kernels at N={shape[0]} D={shape[1]} M={shape[2]} k={shape[3]}")
+    shape = (batch, frames, sae_cfg.activation_dim, sae_cfg.dict_size, sae_cfg.k)
+    log(f"phase 2: kernels at N={batch * frames} ({batch}x{frames}) D={shape[2]} "
+        f"M={shape[3]} k={shape[4]} window={WINDOW}")
     rows = phase_kernels(torch, tk, device, shape, iters=20 if on_card else 2)
 
-    # -- phase 3: the main path ---------------------------------------------
-    log(f"phase 3: flagship detector, {enc_cfg.encoder_layers} layers, "
-        f"{enc_cfg.embed_dim}/{enc_cfg.ffn_dim}, {enc_cfg.num_heads} heads, "
-        f"dict {sae_cfg.dict_size}, k {sae_cfg.k}, batch {batch}, int16 wire")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Detector(cfg, device=device, generator=gen)
     n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
     wavs = synthetic_wavs(n_utts, cut, args.seed)
     wire = to_wire(wavs, "int16")
-    loader = ArrayLoader(wire, None, batch_size=batch)
-    step = make_eval_step(model, device=device)
-    step(wire[:batch])  # one-time setup (library handles) outside the counted run
-    sync(torch, device)
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-
-    tk.sae_encode_topk_fused.launches = 0
-    tk.sae_decode_fused.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "scores.txt"
-        t0 = time.perf_counter()
-        written = produce_scores(step, loader, path)
-        t_scores = time.perf_counter() - t0
-        launches = {"sae_encode_topk_fused": tk.sae_encode_topk_fused.launches,
-                    "sae_decode_fused": tk.sae_decode_fused.launches}
-        ids, scores = read_score_file(path)
-    n_batches = loader.num_batches()
-    log(f"produce_scores: {written} lines in {t_scores:.3f} s over {n_batches} batches; "
-        f"launches {launches}")
-    check(written == n_utts and len(ids) == n_utts, "one score line per utterance")
-    check(ids == [f"utt_{i}" for i in range(n_utts)], "score lines in utterance order")
-    check(bool(np.all(np.isfinite(scores))), "every score is finite")
-    check(bool(np.all((scores >= 0) & (scores <= 1))), "every score lies in [0, 1]")
-    if on_card:
-        for name, count in launches.items():
-            check(count == n_batches, f"{name} launched once per batch ({count})")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-
-    # end to end on a small input: kernels vs plain versions, same features
-    small = torch.from_numpy(wire[:2]).to(device)
-    with torch.inference_mode():
-        feats = model.encoder(dequantize_wire(small)).float()
-        sae = model.sae
-        flat = feats.reshape(-1, feats.shape[-1])
-        c_k = tk.sae_encode_topk_fused(flat, sae.W_enc, sae.b_enc, sae.b_dec, sae_cfg.k)
-        c_p = tk.sae_encode_topk_fused_plain(flat, sae.W_enc, sae.b_enc, sae.b_dec, sae_cfg.k)
-        lp_k = model.classifier(c_k.reshape(2, frames, -1))
-        lp_p = model.classifier(c_p.reshape(2, frames, -1))
-        r_k = tk.sae_decode_fused(c_k, sae.W_dec, sae.b_dec)
-        r_p = tk.sae_decode_fused_plain(c_k, sae.W_dec, sae.b_dec)
-    e2e = float((lp_k - lp_p).abs().max())
-    loss_k, loss_p = float(((r_k - flat) ** 2).mean()), float(((r_p - flat) ** 2).mean())
-    log(f"end to end (2 utterances): log_probs kernels vs plain max_abs {e2e:.3e}; "
-        f"sae_loss {loss_k:.6f} vs {loss_p:.6f}")
-    check(e2e <= E2E_TOL, "log-probs through the kernels agree with the plain versions")
-    check(math.isclose(loss_k, loss_p, rel_tol=1e-4), "sae_loss agrees")
-
-    def throughput(fn, reps):
-        batch_wire = wire[:batch]
-        fn(batch_wire)
-        sync(torch, device)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            out = fn(batch_wire)
-        sync(torch, device)
-        return reps * batch / (time.perf_counter() - t0), out
-
-    def score_only(w):
-        with torch.inference_mode():
-            return model.score(dequantize_wire(torch.from_numpy(w).to(device)))
-
     reps = 10 if on_card else 1
-    ups_eval, _ = throughput(step, reps)
-    ups_score, _ = throughput(score_only, reps)
-    log(f"throughput at batch {batch}: eval step {ups_eval:.1f} utts/s, "
-        f"score() {ups_score:.1f} utts/s")
-    if on_card:
-        log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if args.profile:
-            log(json.dumps({"profile": profile_step(torch, step, wire[:batch])}))
 
-    # -- phase 4: serving -----------------------------------------------------
-    bucket = max(batch // 3, 2)
-    n_partial = n_tail = bucket // 2  # both fit the bucket shape
-    _, score_fn, _ = build_scorer_from_params(
-        exp, model.state_dict(), batch_size=batch, wire_dtype="int16", device=device,
-        bucket_sizes=(bucket,))
-    rng = np.random.default_rng(args.seed + 1)
-    clips = [wavs[i % n_utts][: int(rng.integers(cut // 4, cut))]
-             for i in range(n_partial + batch + n_tail)]
+    def drive(label, model, exp_cfg, encode_k, encode_p):
+        """One path: produce_scores with its launch counts, the kernels
+        against the plain versions end to end, throughput, and serving.
+        ``encode_k`` / ``encode_p`` map flat features to codes [2, T, M]
+        through the kernels / the plain versions."""
+        loader = ArrayLoader(wire, None, batch_size=batch)
+        step = make_eval_step(model, device=device)
+        step(wire[:batch])  # one-time setup (library handles) outside the counted run
+        sync(torch, device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
 
-    def offline(idx, shape):
-        rows_ = [pad_or_tile(clips[i], cut) for i in idx]
-        rows_ += [rows_[0]] * (shape - len(rows_))
-        w = torch.from_numpy(to_wire(np.stack(rows_), "int16")).to(device)
+        for name in KERNELS:
+            getattr(tk, name).launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "scores.txt"
+            t0 = time.perf_counter()
+            written = produce_scores(step, loader, path)
+            t_scores = time.perf_counter() - t0
+            launches = {name: getattr(tk, name).launches for name in KERNELS}
+            ids, scores = read_score_file(path)
+        n_batches = loader.num_batches()
+        log(f"{label} produce_scores: {written} lines in {t_scores:.3f} s over {n_batches} "
+            f"batches; launches {launches}")
+        check(written == n_utts and len(ids) == n_utts, "one score line per utterance")
+        check(ids == [f"utt_{i}" for i in range(n_utts)], "score lines in utterance order")
+        check(bool(np.all(np.isfinite(scores))), "every score is finite")
+        check(bool(np.all((scores >= 0) & (scores <= 1))), "every score lies in [0, 1]")
+        if on_card:
+            for name, count in launches.items():
+                want = n_batches if name in PATH_KERNELS[label] else 0
+                check(count == want, f"{label}: {name} launched {count} times, want {want}")
+
+        # end to end on a small input: kernels vs plain versions, same features
+        small = torch.from_numpy(wire[:2]).to(device)
+        sae = model.sae
         with torch.inference_mode():
-            return log_probs_to_scores(model.score(dequantize_wire(w)))[: len(idx)]
+            feats = model.encoder(dequantize_wire(small)).float()
+            flat = feats.reshape(-1, feats.shape[-1])
+            c_k, c_p = encode_k(flat), encode_p(flat)
+            lp_k, lp_p = model.classifier(c_k), model.classifier(c_p)
+            codes = c_k.reshape(flat.shape[0], -1)
+            r_k = tk.sae_decode_fused(codes, sae.W_dec, sae.b_dec)
+            r_p = tk.sae_decode_fused_plain(codes, sae.W_dec, sae.b_dec)
+        e2e = float((lp_k - lp_p).abs().max())
+        loss_k, loss_p = float(((r_k - flat) ** 2).mean()), float(((r_p - flat) ** 2).mean())
+        log(f"{label} end to end (2 utterances): log_probs kernels vs plain max_abs {e2e:.3e}; "
+            f"sae_loss {loss_k:.6f} vs {loss_p:.6f}")
+        check(e2e <= E2E_TOL, "log-probs through the kernels agree with the plain versions")
+        check(math.isclose(loss_k, loss_p, rel_tol=1e-4), "sae_loss agrees")
 
-    enc_before = tk.sae_encode_topk_fused.launches
-    partial = list(range(n_partial))
-    multi = list(range(n_partial, len(clips)))
-    with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
-                        bucket_sizes=(bucket,), max_wait_ms=500) as engine:
-        got_partial = np.array([f.result(timeout=120) for f in
-                                [engine.submit(clips[i]) for i in partial]])
-        got_multi = np.array([f.result(timeout=120) for f in
-                              [engine.submit(clips[i]) for i in multi]])
-        stats = engine.stats().to_dict()
-    want_partial = offline(partial, bucket)
-    want_multi = np.concatenate([offline(multi[:batch], batch), offline(multi[batch:], bucket)])
-    d1 = float(np.abs(got_partial - want_partial).max())
-    d2 = float(np.abs(got_multi - want_multi).max())
-    log(f"serving: {len(partial)} + {len(multi)} requests; served vs offline max_abs "
-        f"{d1:.3e} / {d2:.3e} (tolerance {SERVE_TOL}); stats {json.dumps(stats)}")
-    check(stats["requests"] == len(clips) and stats["batches"] == 3,
-          "requests grouped into a bucket batch, a full batch and a bucket batch")
-    check(d1 <= SERVE_TOL and d2 <= SERVE_TOL, "served scores equal offline scores")
-    if on_card:
-        check(tk.sae_encode_topk_fused.launches - enc_before >= 3,
-              "serving went through the encode kernel")
+        def throughput(fn):
+            batch_wire = wire[:batch]
+            fn(batch_wire)
+            sync(torch, device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(batch_wire)
+            sync(torch, device)
+            return reps * batch / (time.perf_counter() - t0)
+
+        def score_only(w):
+            with torch.inference_mode():
+                return model.score(dequantize_wire(torch.from_numpy(w).to(device)))
+
+        res = {"launches": launches, "eval_utts_per_s": throughput(step),
+               "score_utts_per_s": throughput(score_only)}
+        log(f"{label} throughput at batch {batch}: eval step {res['eval_utts_per_s']:.1f} "
+            f"utts/s, score() {res['score_utts_per_s']:.1f} utts/s")
+        if on_card:
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"{label} peak device memory {res['peak_gib']:.2f} GiB")
+            if args.profile:
+                prof = profile_step(torch, step, wire[:batch])
+                log(json.dumps({"profile": {"path": label, **prof}}))
+
+        # serving: a bucket batch, a full batch and a bucket batch
+        bucket = max(batch // 3, 2)
+        n_partial = n_tail = bucket // 2  # both fit the bucket shape
+        _, score_fn, _ = build_scorer_from_params(
+            exp_cfg, model.state_dict(), batch_size=batch, wire_dtype="int16", device=device,
+            bucket_sizes=(bucket,))
+        rng = np.random.default_rng(args.seed + 1)
+        clips = [wavs[i % n_utts][: int(rng.integers(cut // 4, cut))]
+                 for i in range(n_partial + batch + n_tail)]
+
+        def offline(idx, shape_):
+            rows_ = [pad_or_tile(clips[i], cut) for i in idx]
+            rows_ += [rows_[0]] * (shape_ - len(rows_))
+            w = torch.from_numpy(to_wire(np.stack(rows_), "int16")).to(device)
+            with torch.inference_mode():
+                return log_probs_to_scores(model.score(dequantize_wire(w)))[: len(idx)]
+
+        encoders = [n for n in PATH_KERNELS[label] if n != "sae_decode_fused"]
+        before = {n: getattr(tk, n).launches for n in encoders}
+        partial = list(range(n_partial))
+        multi = list(range(n_partial, len(clips)))
+        with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
+                            bucket_sizes=(bucket,), max_wait_ms=500) as engine:
+            got_partial = np.array([f.result(timeout=120) for f in
+                                    [engine.submit(clips[i]) for i in partial]])
+            got_multi = np.array([f.result(timeout=120) for f in
+                                  [engine.submit(clips[i]) for i in multi]])
+            stats = engine.stats().to_dict()
+        served = {n: getattr(tk, n).launches - before[n] for n in encoders}
+        want_partial = offline(partial, bucket)
+        want_multi = np.concatenate([offline(multi[:batch], batch),
+                                     offline(multi[batch:], bucket)])
+        d1 = float(np.abs(got_partial - want_partial).max())
+        d2 = float(np.abs(got_multi - want_multi).max())
+        log(f"{label} serving: {len(partial)} + {len(multi)} requests; served vs offline "
+            f"max_abs {d1:.3e} / {d2:.3e} (tolerance {SERVE_TOL}); kernel launches {served}; "
+            f"stats {json.dumps(stats)}")
+        check(stats["requests"] == len(clips) and stats["batches"] == 3,
+              "requests grouped into a bucket batch, a full batch and a bucket batch")
+        check(d1 <= SERVE_TOL and d2 <= SERVE_TOL, "served scores equal offline scores")
+        if on_card:
+            for n, count in served.items():
+                check(count == stats["batches"], f"serving launched {n} once per batch")
+        return res
+
+    k = sae_cfg.k
+
+    # -- phases 3-4: the flagship path ---------------------------------------
+    log(f"phase 3: flagship detector, {enc_cfg.encoder_layers} layers, "
+        f"{enc_cfg.embed_dim}/{enc_cfg.ffn_dim}, {enc_cfg.num_heads} heads, "
+        f"dict {sae_cfg.dict_size}, k {k}, batch {batch}, int16 wire")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = Detector(cfg, device=device, generator=gen)
+    sae = model.sae
+    results = {"flagship": drive(
+        "flagship", model, exp,
+        lambda f: tk.sae_encode_topk_fused(f, sae.W_enc, sae.b_enc, sae.b_dec, k
+                                           ).reshape(2, frames, -1),
+        lambda f: tk.sae_encode_topk_fused_plain(f, sae.W_enc, sae.b_enc, sae.b_dec, k
+                                                 ).reshape(2, frames, -1))}
+
+    # -- phase 5: the window-overlap path, on the flagship's weights ----------
+    win_cfg = dataclasses.replace(cfg, sae=dataclasses.replace(
+        sae_cfg, variant="window_overlap", window_size=WINDOW))
+    log(f"phase 5: window-overlap detector (window {WINDOW}), the flagship's weights")
+    win_model = Detector(win_cfg, device="meta")  # no init: the weights are shared
+    win_model.load_state_dict(model.state_dict(), strict=True, assign=True)
+    results["window_overlap"] = drive(
+        "window_overlap", win_model, dataclasses.replace(exp, model=win_cfg),
+        lambda f: tk.window_vote_fused(
+            tk.sae_encode_fused(f, sae.W_enc, sae.b_enc, sae.b_dec).reshape(2, frames, -1),
+            k, WINDOW),
+        lambda f: tk.window_vote_fused_plain(
+            tk.sae_encode_fused_plain(f, sae.W_enc, sae.b_enc, sae.b_dec).reshape(2, frames, -1),
+            k, WINDOW))
+
+    for row in rows:
+        by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if not on_card:
         log("rehearsal passed (CPU, plain versions): not a device result")
         return 0
     kernels = [{key: row[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance")}
+        "name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
+        "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance")}
         for row in rows]
     print(json.dumps({"run": {"card": card, "batch": batch, "layers": enc_cfg.encoder_layers,
-                              "eval_utts_per_s": ups_eval, "score_utts_per_s": ups_score}}))
+                              "paths": {label: {key: res[key] for key in (
+                                  "eval_utts_per_s", "score_utts_per_s", "peak_gib")}
+                                  for label, res in results.items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@
 //      applied in the epilogue; the dense activations go to `out`.
 //  (b) a row select: one block per row copies the row's bit patterns to
 //      shared memory, runs the 31 halvings with block-wide counts (warp
-//      shuffles, then one sum over the warps), and zeroes in place every
-//      entry below the threshold.
+//      shuffles, then one sum over the warps), and rewrites the row in
+//      place with every entry below the threshold zeroed.  The same
+//      select, out of place, is the second entry topk_sparsify_launch.
 // The dense activations make one extra round trip through device memory
 // between (a) and (b); a fused select epilogue, wgmma and TMA are the
 // later work that removes it.
@@ -199,14 +200,17 @@ encode_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 __global__ void __launch_bounds__(SELECT_THREADS)
-topk_select_kernel(float* __restrict__ acts, int M, int k) {
+topk_select_kernel(const float* in, float* out, int M, int k) {
+  // in and out may be the same rows: each row is read whole into shared
+  // memory before any of it is written
   extern __shared__ int bits[];  // the row's M bit patterns
   __shared__ int warp_count[SELECT_THREADS / 32];
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  float* row = acts + (size_t)blockIdx.x * M;
+  const float* row_in = in + (size_t)blockIdx.x * M;
+  float* row_out = out + (size_t)blockIdx.x * M;
 
-  for (int j = tid; j < M; j += SELECT_THREADS) bits[j] = __float_as_int(row[j]);
+  for (int j = tid; j < M; j += SELECT_THREADS) bits[j] = __float_as_int(row_in[j]);
   __syncthreads();
 
   int lo = 0, hi = 0x7F800000;  // +inf bits
@@ -225,7 +229,15 @@ topk_select_kernel(float* __restrict__ acts, int M, int k) {
     if (total >= k) lo = mid; else hi = mid;
   }
   for (int j = tid; j < M; j += SELECT_THREADS)
-    if (bits[j] < lo) row[j] = 0.f;
+    row_out[j] = bits[j] >= lo ? __int_as_float(bits[j]) : 0.f;
+}
+
+// the select's dynamic shared memory: one int per column
+cudaError_t set_select_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(topk_select_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -245,12 +257,25 @@ extern "C" int sae_encode_topk_launch(const void* x, const void* w_enc,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(M) * sizeof(int);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(topk_select_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  topk_select_kernel<<<N, SELECT_THREADS, smem, s>>>(static_cast<float*>(out), M, k);
+  err = set_select_smem(smem);
+  if (err != cudaSuccess) return err;
+  float* acts = static_cast<float*>(out);
+  topk_select_kernel<<<N, SELECT_THREADS, smem, s>>>(acts, acts, M, k);
+  return cudaGetLastError();
+}
+
+// The exact row top-k alone (replaces sae_kernels.py::topk_sparsify_pallas,
+// lines 232-259, kernel body _topk_mask_kernel, 225-229): out = in where
+// bits(in) >= the row's k-th value's bits, else 0.  in, out [N, M] fp32,
+// non-negative, contiguous; N >= 1.  Bytes bound it: one read of in and
+// one write of out; the 31 halvings run on the shared-memory copy.
+extern "C" int topk_sparsify_launch(const void* in, void* out, int N, int M,
+                                    int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(M) * sizeof(int);
+  cudaError_t err = set_select_smem(smem);
+  if (err != cudaSuccess) return err;
+  topk_select_kernel<<<N, SELECT_THREADS, smem, s>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), M, k);
   return cudaGetLastError();
 }

@@ -1,11 +1,17 @@
 """SAE hot-path kernels: wrappers over the CUDA sources, with plain versions.
 
-Counterpart of ``sls_tpu/kernels/sae_kernels.py``.  Two kernels are
-ported (forward only):
+Counterpart of ``sls_tpu/kernels/sae_kernels.py``; every kernel there
+is ported (forward only; the backward passes are plain matmuls):
 
 - ``sae_encode_topk_fused``: ``relu((x - b_dec) @ W_enc + b_enc)`` with
   bf16 operands and fp32 accumulation, then the exact row top-k mask
   (every entry >= the row's k-th value), ``csrc/sae_encode_topk.cu``;
+- ``sae_encode_fused``: the same encode with fp32 operands and no top-k,
+  ``csrc/sae_encode.cu``;
+- ``topk_sparsify``: the exact row top-k mask alone, a second entry of
+  ``csrc/sae_encode_topk.cu``;
+- ``window_vote_fused``: the overlap-window vote merge in bf16,
+  ``csrc/window_vote.cu``;
 - ``sae_decode_fused``: ``codes @ W_dec + b_dec`` in fp32,
   ``csrc/sae_decode.cu``.
 
@@ -22,6 +28,7 @@ import ctypes
 import torch
 
 from sls_tpu_torch.kernels import build
+from sls_tpu_torch.sae.sparsify import _overlap_geometry
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +94,63 @@ def sae_decode_fused_plain(codes, w_dec, b_dec) -> torch.Tensor:
     return codes.float() @ w_dec.float() + b_dec.float()
 
 
+def sae_encode_fused_plain(x, w_enc, b_enc, b_dec) -> torch.Tensor:
+    """Plain version of ``sae_encode_fused``: fp32 operands and sums (TF32
+    must be off, PyTorch's default for matmul), bias and ReLU in fp32."""
+    acc = (x.float() - b_dec.float()) @ w_enc.float()
+    return torch.relu(acc + b_enc.float())
+
+
+def _window_geometry(T: int, window: int):
+    """(stride, num_windows, n_chunks) of the vote kernel; even windows
+    only (two stride-chunks a window)."""
+    stride, num_windows, _, t_padded = _overlap_geometry(T, window)
+    if window != 2 * stride:
+        raise ValueError(f"window_vote_fused needs an even window, got {window}")
+    return stride, num_windows, -(-t_padded // stride)
+
+
+def _kth_bits_bf16(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's k-th value's int16 bit pattern (as int32), by the TPU
+    kernel's 15 halvings of [0, 0x7F80)."""
+    lo = torch.zeros(bits.shape[:-1] + (1,), dtype=torch.int32, device=bits.device)
+    hi = torch.full_like(lo, 0x7F80)  # bf16 +inf bits
+    for _ in range(15):
+        mid = lo + ((hi - lo) >> 1)
+        keep = (bits >= mid).sum(-1, keepdim=True) >= k
+        lo = torch.where(keep, mid, lo)
+        hi = torch.where(keep, hi, mid)
+    return lo
+
+
+def window_vote_fused_plain(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
+    """Plain version of ``window_vote_fused``, in the TPU kernel's bf16
+    arithmetic: acts [B, T, M] post-ReLU -> [B, T, M] fp32 holding bf16
+    values."""
+    B, T, M = acts.shape
+    stride, num_windows, n_chunks = _window_geometry(T, window)
+    a = acts.to(torch.bfloat16)
+    # bf16 window sums of fp32 chunk sums (frame order), each window's
+    # k-th value, and its mask
+    chunks = torch.nn.functional.pad(a, (0, 0, 0, n_chunks * stride - T))
+    chunks = chunks.reshape(B, n_chunks, stride, M).float()
+    chunk_sums = chunks[:, :, 0]
+    for r in range(1, stride):
+        chunk_sums = chunk_sums + chunks[:, :, r]
+    window_sums = (chunk_sums[:, :num_windows] + chunk_sums[:, 1:num_windows + 1]
+                   ).to(torch.bfloat16)
+    bits = window_sums.view(torch.int16).int()
+    mask_w = (bits >= _kth_bits_bf16(bits, k)).to(torch.bfloat16)
+    # cover[j] = mask_w[j - 1] + mask_w[j], over valid windows
+    pad = n_chunks - num_windows
+    cover = (torch.nn.functional.pad(mask_w, (0, 0, 0, pad))
+             + torch.nn.functional.pad(mask_w, (0, 0, 1, pad - 1)))  # [B, n_chunks, M]
+    votes = a * cover.repeat_interleave(stride, dim=1)[:, :T]  # exact: cover is 0, 1 or 2
+    bits = votes.view(torch.int16).int()
+    keep = (bits >= _kth_bits_bf16(bits, k)) & (bits > 0)
+    return torch.where(keep, a, 0).float()
+
+
 # -- wrappers ---------------------------------------------------------------
 
 
@@ -123,6 +187,98 @@ def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
 
 
 sae_encode_topk_fused.launches = 0
+
+
+def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
+    """relu((x - b_dec) @ w_enc + b_enc) in fp32, x [N, D] -> [N, M].
+    CUDA: D % 16 == 0, M % 128 == 0, fp32 contiguous operands."""
+    if x.device.type == "cpu":
+        return sae_encode_fused_plain(x, w_enc, b_enc, b_dec)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n, d = x.shape
+    m = w_enc.shape[1]
+    for t, name, shape in ((x, "x", (n, d)), (w_enc, "w_enc", (d, m)),
+                           (b_enc, "b_enc", (m,)), (b_dec, "b_dec", (d,))):
+        _check_operand(t, name, shape, x.device)
+    if d % 16 or m % 128:
+        raise ValueError(f"need D % 16 == 0 and M % 128 == 0, got D={d}, M={m}")
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    fn = _lib("sae_encode", "sae_encode_launch", [_P] * 5 + [_I] * 3 + [_P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), b_dec.data_ptr(),
+                 out.data_ptr(), n, d, m, stream)
+    build.check(err, "sae_encode")
+    sae_encode_fused.launches += 1
+    return out
+
+
+sae_encode_fused.launches = 0
+
+
+def topk_sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep each row's k largest entries, zero the rest: the exact
+    threshold form on non-negative fp32 rows, x [..., M].  CUDA: fp32
+    contiguous."""
+    if x.device.type == "cpu":
+        return topk_threshold_mask_plain(x.reshape(-1, x.shape[-1]), k).reshape(x.shape)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    m = x.shape[-1]
+    _check_operand(x, "x", x.shape, x.device)
+    if not 1 <= k <= m:
+        raise ValueError(f"k must be in [1, {m}], got {k}")
+    if m * 4 > 227 * 1024:
+        raise ValueError(f"M={m} rows exceed a block's shared memory")
+    out = torch.empty_like(x)
+    n = x.numel() // m
+    if n == 0:
+        return out
+    fn = _lib("sae_encode_topk", "topk_sparsify_launch", [_P] * 2 + [_I] * 3 + [_P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), n, m, k, stream)
+    build.check(err, "topk_sparsify")
+    topk_sparsify.launches += 1
+    return out
+
+
+topk_sparsify.launches = 0
+
+
+def window_vote_fused(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
+    """Overlap-window vote merge of post-ReLU acts [B, T, M] fp32 in the
+    TPU kernel's bf16 arithmetic -> [B, T, M] fp32; even ``window``
+    only.  CUDA: fp32 contiguous acts."""
+    if acts.device.type == "cpu":
+        return window_vote_fused_plain(acts, k, window)
+    if acts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {acts.device}")
+    B, T, M = acts.shape
+    stride, num_windows, _ = _window_geometry(T, window)
+    _check_operand(acts, "acts", (B, T, M), acts.device)
+    if not 1 <= k <= M:
+        raise ValueError(f"k must be in [1, {M}], got {k}")
+    if M * 4 > 227 * 1024:
+        raise ValueError(f"M={M} rows exceed a block's shared memory")
+    out = torch.empty_like(acts)
+    if B == 0:
+        return out
+    mask = torch.empty((B, num_windows, M), dtype=torch.uint8, device=acts.device)
+    fn = _lib("window_vote", "window_vote_launch", [_P] * 3 + [_I] * 6 + [_P])
+    with torch.cuda.device(acts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(acts.data_ptr(), mask.data_ptr(), out.data_ptr(), B, T, M, k, stride,
+                 num_windows, stream)
+    build.check(err, "window_vote")
+    window_vote_fused.launches += 1
+    return out
+
+
+window_vote_fused.launches = 0
 
 
 def sae_decode_fused(codes, w_dec, b_dec) -> torch.Tensor:

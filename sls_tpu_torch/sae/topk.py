@@ -1,12 +1,17 @@
 """TopK sparse autoencoder, counterpart of ``sls_tpu/sae/topk.py``.
 
-Per-timestep variant only: tied initialisation (unit-norm decoder atoms,
-encoder = decoder transpose, zero biases), ``encode`` =
-ReLU(enc(x - b_dec)) + per-row TopK, ``decode`` = codes @ W_dec + b_dec.
-Parameters live in fp32.  ``use_pallas`` routes encode and decode
-through the hand-written kernels (``kernels/sae_kernels.py``) with their
-numerics (bf16 encode operands, fp32 decode); otherwise the plain
-matmuls run in ``dtype``, as the JAX package's XLA path does.
+One module for the SAE family through ``SAEConfig.variant``
+(``per_timestep``, ``window_overlap``, ``window_hard``): tied
+initialisation (unit-norm decoder atoms, encoder = decoder transpose,
+zero biases), ``encode`` = ReLU(enc(x - b_dec)) + the variant's TopK
+rule, ``decode`` = codes @ W_dec + b_dec.  Parameters live in fp32.
+``use_pallas`` routes the work through the hand-written kernels
+(``kernels/sae_kernels.py``) with their numerics, as the JAX package
+routes it through its Pallas kernels: the fused bf16 encode + top-k for
+``per_timestep``, the fp32 encode then the bf16 vote merge for
+``window_overlap`` with an even window, the fp32 encode then the plain
+rule otherwise, and the fp32 decode.  Without it the plain matmuls run
+in ``dtype``, as the JAX package's XLA path does.
 """
 
 from __future__ import annotations
@@ -17,19 +22,23 @@ import torch
 from torch import nn
 
 from sls_tpu_torch.config import SAEConfig
-from sls_tpu_torch.kernels.sae_kernels import sae_decode_fused, sae_encode_topk_fused
-from sls_tpu_torch.sae.sparsify import topk_per_row
+from sls_tpu_torch.kernels.sae_kernels import (
+    sae_decode_fused,
+    sae_encode_fused,
+    sae_encode_topk_fused,
+    window_vote_fused,
+)
+from sls_tpu_torch.sae.sparsify import topk_per_row, window_topk_hard, window_topk_overlap
+
+VARIANTS = ("per_timestep", "window_overlap", "window_hard")
 
 
 class TopKSAE(nn.Module):
     def __init__(self, config: SAEConfig, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if config.variant != "per_timestep":
-            raise NotImplementedError(
-                f"SAE variant {config.variant!r} is not ported yet "
-                "(ROADMAP §1, the rest of the SAE family)"
-            )
+        if config.variant not in VARIANTS:
+            raise ValueError(f"unknown SAE variant: {config.variant!r}")
         self.config = config
         self.dtype = dtype
         D, M = config.activation_dim, config.dict_size
@@ -52,21 +61,38 @@ class TopKSAE(nn.Module):
     def pre_activations(self, x: torch.Tensor) -> torch.Tensor:
         """ReLU encoder activations before sparsification.  x: [..., D]."""
         if self.config.use_pallas:
-            raise NotImplementedError(
-                "use_pallas pre_activations needs the sae_encode_fused kernel, "
-                "not ported yet (ROADMAP §2)"
-            )
+            flat = x.reshape(-1, x.shape[-1])
+            out = sae_encode_fused(flat, self.W_enc, self.b_enc, self.b_dec)
+            return out.reshape(*x.shape[:-1], self.config.dict_size)
         h = (x - self.b_dec).to(self.dtype) @ self.W_enc.to(self.dtype)
         return torch.relu(h.float() + self.b_enc)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Sparse codes for x ([B, T, D] or [N, D]) -> [..., M]."""
+    def sparsify(self, acts: torch.Tensor) -> torch.Tensor:
+        """Apply the configured TopK rule.  Window variants need [B, T, M]."""
         cfg = self.config
-        if cfg.use_pallas:
+        if cfg.variant == "per_timestep":
+            return topk_per_row(acts, cfg.k)
+        if acts.dim() != 3:
+            raise ValueError(
+                f"variant {cfg.variant!r} needs [B,T,M] activations, "
+                f"got shape {tuple(acts.shape)}"
+            )
+        if cfg.variant == "window_overlap":
+            return window_topk_overlap(acts, cfg.k, cfg.window_size)
+        return window_topk_hard(acts, cfg.k, cfg.window_size)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Sparse codes for x ([B, T, D] or [N, D]; window variants need
+        the 3-D form) -> [..., M]."""
+        cfg = self.config
+        if cfg.use_pallas and cfg.variant == "per_timestep":
             flat = x.reshape(-1, x.shape[-1])
             out = sae_encode_topk_fused(flat, self.W_enc, self.b_enc, self.b_dec, cfg.k)
             return out.reshape(*x.shape[:-1], cfg.dict_size)
-        return topk_per_row(self.pre_activations(x), cfg.k)
+        if (cfg.use_pallas and cfg.variant == "window_overlap"
+                and x.dim() == 3 and cfg.window_size % 2 == 0):
+            return window_vote_fused(self.pre_activations(x), cfg.k, cfg.window_size)
+        return self.sparsify(self.pre_activations(x))
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         if self.config.use_pallas:
