@@ -27,14 +27,25 @@ Phases:
      offline score() of the same audio at the same batch shape;
   5. the window-overlap path, as phases 3 and 4: the same Detector with
      the window-overlap SAE (window 8), holding the flagship's weights,
-     through sae_encode_fused, window_vote_fused and sae_decode_fused.
+     through sae_encode_fused, window_vote_fused and sae_decode_fused;
+  6. long-clip unwindowed scoring on the flagship's weights:
+     score_utterances_unwindowed over clips of 4, 40, 90 and 150 s
+     (buckets T 256, 2560, 5120 and 5120 in two chunks), with
+     flash_attention_long launched once per layer at T >= 2560 and never
+     below; held against the same weights on the einsum route
+     (flash_long_t=0); ms per forward and audio-seconds per second at
+     T 2560 and 5120; score_full_utterance, score_utterances_streamed and
+     BatchingEngine.score_long over the same clips;
+  7. the fused_attention=True flagship, as phases 3 and 4, on the
+     flagship's weights: fused_attention launched once per layer and
+     batch, log-probs held against the default path's.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
 line with the card and the throughputs; the last line is
 ``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
-``--profile`` adds each path's eval-step device time by kernel
-(torch.profiler) as a ``{"profile": ...}`` line.
+``--profile`` adds each path's eval-step device time by kernel, and a
+T 5120 forward's (torch.profiler), as ``{"profile": ...}`` lines.
 """
 
 from __future__ import annotations
@@ -63,18 +74,41 @@ TOPK_TOL = 0.0         # the same 31-step search on the same bits: exact
 VOTE_TOL = 0.0         # the same bf16 steps, chunk sums in the same order: exact
 E2E_TOL = 1e-3         # log-probs through kernels vs plain versions
 SERVE_TOL = 1e-4       # served vs offline P(bonafide) at the same batch shape
+ATTN_REL_TOL = 1e-2    # of max|plain|: bf16 p rounded either side of a near-tie
+ROUTE_TOL = 2e-2       # long-T log-probs, attention kernel route vs the einsum route
+# Against the einsum route at bf16, the kernel routes differ by the bf16
+# noise of a 24-layer encoder: the einsum route's own error against the
+# same weights in fp32 is the envelope.  A kernel route must lie within
+# 1.5x of it from fp32 and within 2x of it from the einsum route (two
+# roundings of that size), as tests/test_torch_encoder.py holds the
+# port's bf16 encoder.  Measured on the long-T encoder output (relative
+# L2) and on the fused_attention path's log-probs (max abs).
+ROUTE_ENVELOPE = (1.5, 2.0)
 WINDOW = 8             # the window-overlap variant's window (SAEConfig default)
 
-KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
-           "window_vote_fused", "sae_decode_fused")
-# each path's kernels: launched once per batch; every other kernel never
-PATH_KERNELS = {
-    "flagship": ("sae_encode_topk_fused", "sae_decode_fused"),
-    "window_overlap": ("sae_encode_fused", "window_vote_fused", "sae_decode_fused"),
-}
+SAE_KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
+               "window_vote_fused", "sae_decode_fused")
+ATTN_KERNELS = ("flash_attention_long", "fused_attention", "fused_attention_heads")
+KERNELS = SAE_KERNELS + ATTN_KERNELS
+
+
+def path_kernels(layers: int) -> dict:
+    """Each batch path's launches per batch by kernel; every other kernel
+    never."""
+    return {
+        "flagship": {"sae_encode_topk_fused": 1, "sae_decode_fused": 1},
+        "window_overlap": {"sae_encode_fused": 1, "window_vote_fused": 1,
+                           "sae_decode_fused": 1},
+        "fused_attention": {"sae_encode_topk_fused": 1, "sae_decode_fused": 1,
+                            "fused_attention": layers},
+    }
+
+
 # the hand-written kernels' names as the profiler shows them
 OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
-               "window_mask_kernel", "frame_vote_kernel", "decode_kernel")
+               "window_mask_kernel", "frame_vote_kernel", "decode_kernel",
+               "attention_bf16_kernel")
+LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
 
@@ -288,9 +322,92 @@ def phase_kernels(torch, tk, device, shape, iters):
     return rows
 
 
+def bf16_ulps_exceeded(torch, out, ref) -> int:
+    """Elements of ``out`` further than one bf16 ulp of ``ref`` from it."""
+    _, exp = torch.frexp(ref.float())
+    ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+    return int(((out.float() - ref.float()).abs() > ulp).sum())
+
+
+def phase_attention(torch, ta, device, long_shape, short_shape, iters):
+    """Kernels 6, 9 and 10 (one CUDA kernel behind three wrappers) against
+    their plain versions at the main paths' shapes, bf16: row 6 at the
+    long-T bucket [B, T, C] (also at T / 2 and at Tq = T / 4 against Tkv =
+    T), rows 9 and 10 at the short-T flagship [B, T, H, Dh]."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(1)
+
+    def inputs(*shapes):
+        return [(torch.randn(s, device=device, generator=g) * 0.5).to(bf16) for s in shapes]
+
+    def sdpa(q, k, v, heads):
+        """One library call of the same function (a yardstick only)."""
+        def view(x):
+            return x.reshape(x.shape[0], x.shape[1], heads, -1).transpose(1, 2)
+        return F.scaled_dot_product_attention(view(q), view(k), view(v), scale=1.0)
+
+    def measure(name, wrapper, plain, args, heads, replaces):
+        out = wrapper(*args)
+        sync(torch, device)
+        ref = plain(*args)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = ATTN_REL_TOL * float(ref.float().abs().max())
+        ulps = bf16_ulps_exceeded(torch, out, ref)
+        check(err <= tol, f"{name} agrees with its plain version")
+        q, k = args[0], args[1]
+        b, tq = q.shape[0], q.shape[1]
+        tkv, c = k.shape[1], k.shape[-1] * (k.shape[-2] if k.dim() == 4 else 1)
+        ops = 4.0 * b * tq * tkv * c  # q k^T and p v, 2 ops a multiply-add
+        bytes_ = 2.0 * (2 * b * tq * c + 2 * b * tkv * c)  # q, k, v read, o written
+        bound_ms, by = bound(bytes_, ops, PEAK_BF16_FLOPS)
+        flat = [x.reshape(x.shape[0], x.shape[1], -1) for x in args[:3]]
+        row = {
+            "name": name, "route": "cuda", "source": "sls_tpu_torch/kernels/csrc/attention.cu",
+            "replaces": replaces, "max_abs_err": err, "tolerance": tol,
+            "elements_beyond_one_bf16_ulp": ulps, "elements": out.numel(),
+            "shape": {"B": b, "Tq": tq, "Tkv": tkv, "C": c, "heads": heads},
+            "ms": timed(torch, lambda: wrapper(*args), device, iters),
+            "plain_ms": timed(torch, lambda: plain(*args), device, max(iters // 4, 1)),
+            "library_ms": timed(torch, lambda: sdpa(*flat, heads), device, iters),
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
+        }
+        log(f"{name} {row['shape']}: max_abs_err {err:.3e} (tolerance {tol:.3e}), "
+            f"{ulps} of {out.numel()} elements beyond one bf16 ulp; {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({by})")
+        return row
+
+    b, t, c, h = long_shape
+    long_rows = [measure("flash_attention_long",
+                         lambda q, k, v: ta.flash_attention_long(q, k, v, h, block_q=128),
+                         lambda q, k, v: ta.flash_attention_long_plain(q, k, v, h),
+                         inputs(*[(b, tq, c)] + [(b, tkv, c)] * 2), h,
+                         "sls_tpu/kernels/flash_attention.py:52")
+                 for tq, tkv in ((t, t), (t // 2, t // 2), (t // 4, t))]
+    row6 = dict(long_rows[0], cases=[{key: r[key] for key in (
+        "shape", "max_abs_err", "tolerance", "elements_beyond_one_bf16_ulp", "ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")} for r in long_rows])
+
+    b, t, h, dh = short_shape
+    args = inputs(*[(b, t, h, dh)] * 3)
+    row9 = measure("fused_attention", ta.fused_attention, ta.fused_attention_plain, args, h,
+                   "sls_tpu/kernels/attention.py:117")
+    flat = [x.reshape(b, t, h * dh) for x in args]
+    row10 = measure("fused_attention_heads",
+                    lambda q, k, v: ta.fused_attention_heads(q, k, v, h),
+                    lambda q, k, v: ta.fused_attention_heads_plain(q, k, v, h), flat, h,
+                    "sls_tpu/kernels/attention.py:56")
+    rows = [row6, row9, row10]
+    for row in rows:
+        row["kernel_ms"] = row["ms"]
+    return rows
+
+
 def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
     """Device time of ``reps`` eval steps by kernel name (torch.profiler's
-    device-side events), the SAE kernels' part of it, and the device's
+    device-side events), the hand-written kernels' part of it, and the device's
     busy share of the window's wall time (one stream: kernels do not
     overlap, so their durations add)."""
     from collections import defaultdict
@@ -321,7 +438,7 @@ def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
         "device_ms_per_step": total_us / reps / 1e3,
         "device_busy_share": total_us / wall_us,
         "kernel_names": len(by_name),
-        "sae_kernels_ms_per_step": {k: v / reps / 1e3 for k, v in ours.items()},
+        "own_kernels_ms_per_step": {k: v / reps / 1e3 for k, v in ours.items()},
         "top": [{"kernel": name[:100], "ms_per_step": us / reps / 1e3, "share": us / total_us}
                 for name, us in top],
     }
@@ -358,6 +475,8 @@ def main(argv=None) -> int:
     from sls_tpu_torch import config as C
     from sls_tpu_torch.data.audio import pad_or_tile
     from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
+    from sls_tpu_torch.evaluation import overlap as ev
+    from sls_tpu_torch.kernels import attention as ta
     from sls_tpu_torch.kernels import build
     from sls_tpu_torch.kernels import sae_kernels as tk
     from sls_tpu_torch.models.detector import Detector
@@ -388,12 +507,17 @@ def main(argv=None) -> int:
         enc_cfg = C.XLSRConfig(dtype=torch.bfloat16)
         sae_cfg = C.SAEConfig(activation_dim=1024, dict_size=4096, k=128, use_pallas=True)
         cut = 64600
+        long_targets = (256, 512, 1280, 2560, 5120)  # length_buckets' defaults
+        attn_long, attn_short = (1, 5120, 1024, 16), (batch, 201, 16, 64)
     else:
         log("rehearsal on the CPU: plain versions at a tiny size; no device result")
         batch = 4
-        enc_cfg = C.tiny_xlsr_config(dtype=torch.bfloat16)
+        # the long-T route from 256 frames on, so phase 6 takes it
+        enc_cfg = C.tiny_xlsr_config(dtype=torch.bfloat16, flash_long_t=256)
         sae_cfg = C.SAEConfig(activation_dim=64, dict_size=256, k=32, use_pallas=True)
         cut = 4000
+        long_targets = (64, 256, 512)
+        attn_long, attn_short = (1, 512, 256, 4), (batch, 50, 4, 64)
     cfg = C.ModelConfig(encoder=enc_cfg, sae=sae_cfg)
     exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
     frames = enc_cfg.num_frames(cut)
@@ -403,6 +527,19 @@ def main(argv=None) -> int:
     log(f"phase 2: kernels at N={batch * frames} ({batch}x{frames}) D={shape[2]} "
         f"M={shape[3]} k={shape[4]} window={WINDOW}")
     rows = phase_kernels(torch, tk, device, shape, iters=20 if on_card else 2)
+    log(f"phase 2: attention at [B, T, C, H] {attn_long} (long T) and [B, T, H, Dh] "
+        f"{attn_short} (short T), bf16")
+    rows += phase_attention(torch, ta, device, attn_long, attn_short,
+                            iters=20 if on_card else 2)
+    wrappers = {name: getattr(tk if name in SAE_KERNELS else ta, name) for name in KERNELS}
+    per_batch = path_kernels(enc_cfg.encoder_layers)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
     wavs = synthetic_wavs(n_utts, cut, args.seed)
@@ -421,14 +558,13 @@ def main(argv=None) -> int:
         if on_card:
             torch.cuda.reset_peak_memory_stats()
 
-        for name in KERNELS:
-            getattr(tk, name).launches = 0
+        zero_counts()
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "scores.txt"
             t0 = time.perf_counter()
             written = produce_scores(step, loader, path)
             t_scores = time.perf_counter() - t0
-            launches = {name: getattr(tk, name).launches for name in KERNELS}
+            launches = counts()
             ids, scores = read_score_file(path)
         n_batches = loader.num_batches()
         log(f"{label} produce_scores: {written} lines in {t_scores:.3f} s over {n_batches} "
@@ -439,7 +575,7 @@ def main(argv=None) -> int:
         check(bool(np.all((scores >= 0) & (scores <= 1))), "every score lies in [0, 1]")
         if on_card:
             for name, count in launches.items():
-                want = n_batches if name in PATH_KERNELS[label] else 0
+                want = n_batches * per_batch[label].get(name, 0)
                 check(count == want, f"{label}: {name} launched {count} times, want {want}")
 
         # end to end on a small input: kernels vs plain versions, same features
@@ -502,8 +638,8 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 return log_probs_to_scores(model.score(dequantize_wire(w)))[: len(idx)]
 
-        encoders = [n for n in PATH_KERNELS[label] if n != "sae_decode_fused"]
-        before = {n: getattr(tk, n).launches for n in encoders}
+        encoders = [n for n in per_batch[label] if n != "sae_decode_fused"]
+        before = {n: wrappers[n].launches for n in encoders}
         partial = list(range(n_partial))
         multi = list(range(n_partial, len(clips)))
         with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
@@ -513,7 +649,7 @@ def main(argv=None) -> int:
             got_multi = np.array([f.result(timeout=120) for f in
                                   [engine.submit(clips[i]) for i in multi]])
             stats = engine.stats().to_dict()
-        served = {n: getattr(tk, n).launches - before[n] for n in encoders}
+        served = {n: wrappers[n].launches - before[n] for n in encoders}
         want_partial = offline(partial, bucket)
         want_multi = np.concatenate([offline(multi[:batch], batch),
                                      offline(multi[batch:], bucket)])
@@ -527,7 +663,8 @@ def main(argv=None) -> int:
         check(d1 <= SERVE_TOL and d2 <= SERVE_TOL, "served scores equal offline scores")
         if on_card:
             for n, count in served.items():
-                check(count == stats["batches"], f"serving launched {n} once per batch")
+                check(count == stats["batches"] * per_batch[label][n],
+                      f"serving launched {n} {per_batch[label][n]} times a batch")
         return res
 
     k = sae_cfg.k
@@ -561,6 +698,151 @@ def main(argv=None) -> int:
             tk.sae_encode_fused_plain(f, sae.W_enc, sae.b_enc, sae.b_dec).reshape(2, frames, -1),
             k, WINDOW))
 
+    # -- phase 6: long-clip unwindowed scoring, on the flagship's weights -----
+    layers = enc_cfg.encoder_layers
+    buckets = ev.length_buckets(enc_cfg, long_targets)
+    if on_card:
+        lengths = [16000 * sec for sec in LONG_CLIP_SECONDS]
+    else:  # the same bucket pattern at the tiny size
+        b_ = sorted(buckets.values())
+        lengths = [b_[0] - 100, b_[-2] - 100, b_[-1] - 100, b_[-1] + b_[-1] // 2]
+    long_clips = [(f"clip_{n / 16000:g}s", synthetic_wavs(1, n, args.seed + 3 + i)[0])
+                  for i, n in enumerate(lengths)]
+    log(f"phase 6: unwindowed scoring of {[u for u, _ in long_clips]}, buckets {buckets}, "
+        f"flash_long_t {enc_cfg.flash_long_t}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    long_out, seen = [], counts()
+    for utt, score, t_bucket in ev.score_utterances_unwindowed(
+            model, iter(long_clips), enc_cfg, t_targets=long_targets, device=device):
+        now = counts()
+        long_out.append((utt, score, t_bucket, {n: now[n] - seen[n] for n in now}))
+        seen = now
+    long_launches = counts()
+    long_res = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30} if on_card else {}
+    for utt, score, t_bucket, delta in long_out:
+        log(f"  {utt}: score {score:.6f}, bucket T {t_bucket}, launches {delta}")
+    check([u for u, *_ in long_out] == [u for u, _ in long_clips], "scores in input order")
+    check(all(np.isfinite(sc) and 0 <= sc <= 1 for _, sc, _, _ in long_out),
+          "every long-clip score is finite and in [0, 1]")
+    check([t for _, _, t, _ in long_out] == [long_targets[0]] + [long_targets[-2]]
+          + [long_targets[-1]] * 2, "clips land in the expected buckets")
+    if on_card:
+        for utt, _, t_bucket, delta in long_out:
+            flash = layers if t_bucket >= enc_cfg.flash_long_t else 0
+            want = {n: 0 for n in KERNELS}
+            want.update(sae_encode_topk_fused=1, flash_attention_long=flash)
+            check(delta == want, f"{utt}: launches {delta}, want {want}")
+
+    # the same weights on the reference's einsum route (a config, not a
+    # fallback), and in fp32 on that route (the truth both bf16 routes
+    # are measured from; tanh GELU as the bf16 encoder's)
+    def sharing(enc):
+        m = Detector(dataclasses.replace(cfg, encoder=enc), device="meta")
+        m.load_state_dict(model.state_dict(), strict=True, assign=True)
+        return m
+
+    plain_model = sharing(dataclasses.replace(enc_cfg, flash_long_t=0))
+    fp32_encoder = sharing(dataclasses.replace(enc_cfg, flash_long_t=0, dtype=torch.float32,
+                                               approx_gelu=True)).encoder
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    def forward_ms(m, w, n):
+        with torch.inference_mode():
+            return timed(torch, lambda: m.score(w), device, n)
+
+    long_res.update(ms_per_forward={}, einsum_route_ms_per_forward={}, audio_s_per_s={},
+                    max_log_prob_diff=0.0)
+    with torch.inference_mode():
+        for utt, wav in long_clips:
+            rows_, t_bucket = ev.unwindowed_batch(wav, buckets)
+            w = torch.from_numpy(rows_).to(device)
+            diff = float((model.score(w) - plain_model.score(w)).abs().max())
+            long_res["max_log_prob_diff"] = max(long_res["max_log_prob_diff"], diff)
+            if t_bucket == long_targets[-2]:
+                f_k, f_p = model.encoder(w).float(), plain_model.encoder(w).float()
+                truth = fp32_encoder(w)
+                long_res["encoder_rel_l2"] = {
+                    "kernel_vs_einsum_route": rel_l2(f_k, f_p),
+                    "kernel_route_vs_fp32": rel_l2(f_k, truth),
+                    "einsum_route_vs_fp32": rel_l2(f_p, truth)}
+                del truth
+            if len(rows_) == 1 and t_bucket >= long_targets[-2]:
+                ms = forward_ms(model, w, 3 if on_card else 1)
+                long_res["ms_per_forward"][t_bucket] = ms
+                long_res["einsum_route_ms_per_forward"][t_bucket] = forward_ms(
+                    plain_model, w, 3 if on_card else 1)
+                long_res["audio_s_per_s"][t_bucket] = rows_.shape[1] / 16000 / (ms / 1e3)
+                if on_card and args.profile and t_bucket == long_targets[-1]:
+                    prof = profile_step(torch, lambda x: model.score(x), w)
+                    log(json.dumps({"profile": {"path": f"long_clip_T{t_bucket}", **prof}}))
+    log(f"long clip: {json.dumps(long_res)}")
+    check(long_res["max_log_prob_diff"] <= ROUTE_TOL,
+          "long-T log-probs agree with the einsum route")
+    l2 = long_res["encoder_rel_l2"]
+    envelope = l2["einsum_route_vs_fp32"]
+    check(l2["kernel_route_vs_fp32"] <= ROUTE_ENVELOPE[0] * envelope,
+          "long-T encoder output is within the einsum route's bf16 envelope of fp32")
+    check(l2["kernel_vs_einsum_route"] <= ROUTE_ENVELOPE[1] * envelope,
+          "long-T encoder output agrees with the einsum route within its envelope")
+
+    # windowed full-utterance scoring of the same clips: every clip scored,
+    # the last, short batch of the stream included
+    n_windows = [len(ev.extract_windows(w, cut)) for _, w in long_clips]
+    full = {u: ev.score_full_utterance(model, w, window=cut, batch_size=batch,
+                                       device=device)["score"] for u, w in long_clips}
+    streamed = list(ev.score_utterances_streamed(model, iter(long_clips), window=cut,
+                                                 batch_size=batch, device=device))
+    d_stream = max(abs(sc - full[u]) for u, sc in streamed)
+    log(f"full utterance: {sum(n_windows)} windows {n_windows} in batches of {batch} (last "
+        f"holds {sum(n_windows) % batch}); streamed vs per-clip max_abs {d_stream:.3e}")
+    check(sum(n_windows) % batch != 0, "the stream ends on a short batch")
+    check([u for u, _ in streamed] == [u for u, _ in long_clips], "every streamed clip scored")
+    check(d_stream <= SERVE_TOL, "streamed scores equal per-clip scores")
+
+    def serve_long(wav):
+        _, score_fn, _ = build_scorer_from_params(exp, model.state_dict(), batch_size=batch,
+                                                  wire_dtype="float32", device=device)
+        with BatchingEngine(score_fn, batch, cut=cut, max_wait_ms=500) as engine:
+            return engine.score_long(wav)
+
+    served, n_served = serve_long(long_clips[1][1])
+    d_long = abs(served - full[long_clips[1][0]])
+    log(f"engine score_long of {long_clips[1][0]}: {n_served} windows, vs score_full_utterance "
+        f"max_abs {d_long:.3e} (tolerance {SERVE_TOL})")
+    check(n_served == n_windows[1] and d_long <= SERVE_TOL,
+          "score_long equals score_full_utterance")
+    results["long_clip"] = {"launches": long_launches}
+
+    # -- phase 7: the fused_attention flagship, on the flagship's weights -----
+    fa_cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(enc_cfg, fused_attention=True))
+    log(f"phase 7: fused_attention=True flagship, the flagship's weights, batch {batch}")
+    fa_model = Detector(fa_cfg, device="meta")
+    fa_model.load_state_dict(model.state_dict(), strict=True, assign=True)
+    results["fused_attention"] = drive(
+        "fused_attention", fa_model, dataclasses.replace(exp, model=fa_cfg),
+        lambda f: tk.sae_encode_topk_fused(f, sae.W_enc, sae.b_enc, sae.b_dec, k
+                                           ).reshape(2, frames, -1),
+        lambda f: tk.sae_encode_topk_fused_plain(f, sae.W_enc, sae.b_enc, sae.b_dec, k
+                                                 ).reshape(2, frames, -1))
+    with torch.inference_mode():
+        w = dequantize_wire(torch.from_numpy(wire[:batch]).to(device))
+        lp_fused, lp_default = fa_model.score(w), model.score(w)
+        lp_fp32 = sharing(dataclasses.replace(enc_cfg, flash_long_t=0, dtype=torch.float32,
+                                              approx_gelu=True)).score(w)
+    fa_res = {key: float((a - b).abs().max()) for key, a, b in (
+        ("fused_vs_default", lp_fused, lp_default), ("fused_vs_fp32", lp_fused, lp_fp32),
+        ("default_vs_fp32", lp_default, lp_fp32))}
+    log(f"fused_attention path, one batch of {batch}: log_probs max_abs {json.dumps(fa_res)}")
+    check(fa_res["fused_vs_fp32"] <= ROUTE_ENVELOPE[0] * fa_res["default_vs_fp32"],
+          "fused-attention log-probs are within the default path's bf16 envelope of fp32")
+    check(fa_res["fused_vs_default"] <= ROUTE_ENVELOPE[1] * fa_res["default_vs_fp32"],
+          "fused-attention log-probs agree with the default path within its envelope")
+    results["fused_attention"]["log_probs_max_abs"] = fa_res
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -572,12 +854,15 @@ def main(argv=None) -> int:
         return 0
     kernels = [{key: row[key] for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
-        "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance")}
-        for row in rows]
-    print(json.dumps({"run": {"card": card, "batch": batch, "layers": enc_cfg.encoder_layers,
-                              "paths": {label: {key: res[key] for key in (
-                                  "eval_utts_per_s", "score_utts_per_s", "peak_gib")}
-                                  for label, res in results.items()}}}))
+        "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance",
+        "elements_beyond_one_bf16_ulp", "cases") if key in row} for row in rows]
+    batch_paths = [label for label in results if label != "long_clip"]
+    print(json.dumps({"run": {"card": card, "batch": batch, "layers": layers,
+                              "paths": {label: {key: results[label][key] for key in (
+                                  "eval_utts_per_s", "score_utts_per_s", "peak_gib",
+                                  "log_probs_max_abs") if key in results[label]}
+                                  for label in batch_paths},
+                              "long_clip": long_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,8 +53,10 @@ class XLSRConfig:
     # compute dtype for matmul-heavy ops; norms/softmax stay fp32
     dtype: Any = torch.bfloat16
     remat: bool = False
-    # the fields below select reference paths the port has not taken on
-    # yet (ROADMAP); the encoder raises when one of them is set
+    # fused_attention and flash_long_t (0: off) pick the attention
+    # kernel routes (encoder/xlsr.py); int8_serving, grouped_conv_einsum,
+    # fused_frontend and seq_axis select reference paths the port has not
+    # taken on yet (ROADMAP), and the encoder raises when one is set
     fused_attention: bool = False
     int8_serving: bool = False
     int8_scope: str = "ffn"

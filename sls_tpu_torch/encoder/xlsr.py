@@ -6,9 +6,13 @@ islands; LayerNorm in flax's fast-variance form; GELU computed in fp32
 and cast back, tanh-approximate iff the dtype is bf16.  Public modules
 take and return ``[B, T, C]``; convs run channels-first internally.
 
-Not ported yet (ROADMAP): the int8, flash, fused-attention, fused
-front-end, einsum pos-conv and sequence-parallel branches.  Configs that
-select them raise instead of silently taking another path.
+Attention routes as the reference's eval path does: at T >=
+``flash_long_t`` with T % 256 == 0 through ``flash_attention_long``,
+else with ``fused_attention`` set through ``fused_attention`` (both the
+hand-written kernel of ``kernels/attention.py``), else the plain einsum
+path.  Not ported yet (ROADMAP): the int8, fused front-end, einsum
+pos-conv and sequence-parallel branches.  Configs that select them
+raise instead of silently taking another path.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sls_tpu_torch.config import XLSRConfig
+from sls_tpu_torch.kernels.attention import flash_attention_long, fused_attention
 
 
 def fp32_layer_norm(xf: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -150,8 +155,9 @@ class PositionalConv(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention as matmuls with an fp32 softmax (the
-    plain path of the reference; no library attention kernel)."""
+    """Multi-head self-attention with an fp32 softmax: the attention
+    kernel on the long-T and ``fused_attention`` routes, else matmuls
+    (the reference's einsum path; no library attention kernel)."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -166,14 +172,18 @@ class SelfAttention(nn.Module):
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.num_heads, cfg.head_dim
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)  # [B, T, C]
+        # Both kernel routes are eval-only, as the reference's
+        # ``deterministic`` gate makes them: the port has no training yet,
+        # and the kernel has no backward.
         if cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
-            raise NotImplementedError(
-                "long-T attention runs the flash_attention_long kernel in the "
-                "reference, not ported yet (ROADMAP §2)"
-            )
-        q = self.q_proj(x).reshape(B, T, H, D)
-        k = self.k_proj(x).reshape(B, T, H, D)
-        v = self.v_proj(x).reshape(B, T, H, D)
+            # long-T eval (unwindowed full utterances): the [B, H, T, T]
+            # scores never reach device memory
+            return self.out_proj(flash_attention_long(q * (D ** -0.5), k, v, H))
+        q, k, v = (t.reshape(B, T, H, D) for t in (q, k, v))
+        if cfg.fused_attention:
+            ctx = fused_attention(q * (D ** -0.5), k, v)
+            return self.out_proj(ctx.reshape(B, T, C))
         scores = torch.einsum("bthd,bshd->bhts", q * (D ** -0.5), k)
         probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
@@ -211,8 +221,7 @@ class TransformerLayer(nn.Module):
         return self.final_layer_norm(x + self._ffn(x))
 
 
-_UNPORTED = ("fused_attention", "int8_serving", "fused_frontend",
-             "grouped_conv_einsum", "seq_axis")
+_UNPORTED = ("int8_serving", "fused_frontend", "grouped_conv_einsum", "seq_axis")
 
 
 class XLSREncoder(nn.Module):

@@ -1,0 +1,201 @@
+"""Attention kernels: wrappers over ``csrc/attention.cu``, with plain versions.
+
+Counterpart of ``sls_tpu/kernels/flash_attention.py`` (single-device
+part) and ``sls_tpu/kernels/attention.py``.  Their three Pallas kernels
+compute one function, softmax(q kᵀ) v per head with an fp32 softmax,
+the probabilities rounded to v's dtype and fp32 sums, and differ only in
+layout and grid.  So one CUDA kernel, which reads q, k and v in place as
+``[B, T, H*64]``, serves three wrappers with the reference's names and
+contracts:
+
+- ``flash_attention_long(q, k, v, num_heads, block_q=256)`` on
+  ``[B, Tq, C]`` / ``[B, Tkv, C]``, the long-T eval route;
+- ``fused_attention(q, k, v)`` on ``[B, T, H, Dh]``, the
+  ``XLSRConfig.fused_attention`` route;
+- ``fused_attention_heads(q, k, v, num_heads, h_blk=2)`` on
+  ``[B, T, C]``, which no path calls (the reference's tests do).
+
+q comes pre-scaled by Dh^-0.5.  The CUDA kernel takes bf16 or fp32 at
+Dh 64 and its own q tiles (128 rows), so ``block_q`` and ``h_blk`` only
+keep the reference's checks.  Each wrapper takes its plain PyTorch
+version (``*_plain``, beside it) for a tensor on the CPU, and launches
+the kernel for a CUDA tensor or raises; there is no fallback.
+``<wrapper>.launches`` counts kernel launches.  ``attention_reference``
+and ``sp_block_q`` are own copies of the reference's helpers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from sls_tpu_torch.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+HEAD_DIM = 64  # the head dim the CUDA kernel takes (XLS-R's)
+
+
+# -- plain versions ---------------------------------------------------------
+
+
+def _attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
+    """softmax(q kᵀ) v per head, in explicit fp32: exact products of the
+    operands summed in fp32 (TF32 must be off, PyTorch's default for
+    matmul), an fp32 softmax, the probabilities rounded to v's dtype,
+    fp32 sums again, and the result cast to q's dtype.  q [B, Tq, C],
+    k and v [B, Tkv, C]."""
+    B, Tq, C = q.shape
+    Tkv = k.shape[1]
+    dh = C // num_heads
+
+    def heads(x, t):
+        return x.float().reshape(B, t, num_heads, dh).transpose(1, 2)
+
+    probs = torch.softmax(heads(q, Tq) @ heads(k, Tkv).transpose(-1, -2), dim=-1)
+    ctx = probs.to(v.dtype).float() @ heads(v, Tkv)
+    return ctx.transpose(1, 2).reshape(B, Tq, C).to(q.dtype)
+
+
+def flash_attention_long_plain(q, k, v, num_heads: int) -> torch.Tensor:
+    """Plain version of ``flash_attention_long``."""
+    return _attention_plain(q, k, v, num_heads)
+
+
+def fused_attention_plain(q, k, v) -> torch.Tensor:
+    """Plain version of ``fused_attention``: [B, T, H, Dh] in and out."""
+    B, T, H, Dh = q.shape
+    return _attention_plain(q.reshape(B, T, H * Dh), k.reshape(B, T, H * Dh),
+                            v.reshape(B, T, H * Dh), H).reshape(B, T, H, Dh)
+
+
+def fused_attention_heads_plain(q, k, v, num_heads: int) -> torch.Tensor:
+    """Plain version of ``fused_attention_heads``."""
+    return _attention_plain(q, k, v, num_heads)
+
+
+def attention_reference(q, k, v, num_heads: int) -> torch.Tensor:
+    """The reference's einsum attention with the [B, T, C] contract: the
+    scores in the operands' dtype, then an fp32 softmax."""
+    B, T, C = q.shape
+    dh = C // num_heads
+    qh, kh, vh = (x.reshape(B, T, num_heads, dh) for x in (q, k, v))
+    scores = torch.einsum("bthd,bshd->bhts", qh, kh).float()
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhts,bshd->bthd", probs.to(vh.dtype), vh)
+    return ctx.reshape(B, T, C)
+
+
+def sp_block_q(t_local: int, preferred: int = 256, minimum: int = 128) -> Optional[int]:
+    """Largest q-block <= ``preferred`` dividing the local shard length,
+    or None when the shard is too ragged (the sequence-parallel route's
+    gate)."""
+    b = preferred
+    while b >= minimum:
+        if t_local % b == 0:
+            return b
+        b //= 2
+    return None
+
+
+# -- the kernel --------------------------------------------------------------
+
+
+def _attention_cuda(q, k, v, num_heads: int) -> torch.Tensor:
+    """Launch ``csrc/attention.cu`` on q [B, Tq, C], k and v [B, Tkv, C]."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k and v must be [B, T, C]")
+    B, Tq, C = q.shape
+    Tkv = k.shape[1]
+    if tuple(k.shape) != (B, Tkv, C) or tuple(v.shape) != (B, Tkv, C):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"the kernel takes head dim {HEAD_DIM}; got C={C} over "
+                         f"{num_heads} heads")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if B == 0 or Tq == 0:
+        return out
+    if Tkv == 0:
+        raise ValueError("attention over no keys")
+    fn = getattr(build.load("attention"), "attention_launch")
+    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tkv,
+                 num_heads, int(q.dtype == torch.bfloat16), stream)
+    build.check(err, "attention")
+    return out
+
+
+# -- wrappers ---------------------------------------------------------------
+
+
+def flash_attention_long(q, k, v, num_heads: int, block_q: int = 256) -> torch.Tensor:
+    """softmax(q kᵀ) v per head; q [B, Tq, C] pre-scaled, k and v
+    [B, Tkv, C] (Tq may differ from Tkv), C = num_heads * Dh.  Returns
+    [B, Tq, C] in q's dtype.  Tq must be a multiple of ``block_q``, as in
+    the reference (the long-T path pads clips to length buckets)."""
+    Tq = q.shape[1]
+    if Tq % block_q:
+        raise ValueError(f"Tq={Tq} not a multiple of block_q={block_q}")
+    if q.device.type == "cpu":
+        return flash_attention_long_plain(q, k, v, num_heads)
+    out = _attention_cuda(q, k, v, num_heads)
+    flash_attention_long.launches += 1
+    return out
+
+
+flash_attention_long.launches = 0
+
+
+def fused_attention(q, k, v) -> torch.Tensor:
+    """softmax(q kᵀ) v per (batch, head) on [B, T, H, Dh] (q pre-scaled);
+    returns [B, T, H, Dh] in q's dtype."""
+    if q.dim() != 4:
+        raise ValueError(f"fused_attention takes [B, T, H, Dh], got {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v)
+    B, T, H, Dh = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if tuple(t.shape) != (B, T, H, Dh) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [B, T, H, Dh] like q")
+    out = _attention_cuda(q.view(B, T, H * Dh), k.view(B, T, H * Dh),
+                          v.view(B, T, H * Dh), H)
+    fused_attention.launches += 1
+    return out.view(B, T, H, Dh)
+
+
+fused_attention.launches = 0
+
+
+def fused_attention_heads(q, k, v, num_heads: int, h_blk: int = 2) -> torch.Tensor:
+    """softmax(q_h k_hᵀ) v_h per head on [B, T, C] (q pre-scaled); the
+    reference groups ``h_blk`` heads a grid cell, and this wrapper keeps
+    its check that they divide ``num_heads``."""
+    if num_heads % h_blk:
+        raise ValueError(f"num_heads={num_heads} not a multiple of h_blk={h_blk}")
+    if q.device.type == "cpu":
+        return fused_attention_heads_plain(q, k, v, num_heads)
+    out = _attention_cuda(q, k, v, num_heads)
+    fused_attention_heads.launches += 1
+    return out
+
+
+fused_attention_heads.launches = 0

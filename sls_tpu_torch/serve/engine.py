@@ -12,8 +12,9 @@ Scores follow the offline contract (``scores/writer.log_probs_to_scores``),
 so a served score equals the score-file entry for the same audio at the
 same batch shape.  Every future is resolved through one guard: a future
 that a caller cancelled, or that another path already resolved, is
-skipped instead of raising ``InvalidStateError`` in the worker.  The
-long-clip window API waits for the evaluation port (ROADMAP).
+skipped instead of raising ``InvalidStateError`` in the worker.  Long
+clips are served by windows (``submit_windows``, ``score_long``) under
+the offline full-utterance contract of ``evaluation/overlap.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 
 from sls_tpu_torch.data.audio import DEFAULT_CUT, pad_or_tile
 from sls_tpu_torch.data.pipeline import to_wire
+from sls_tpu_torch.evaluation.overlap import aggregator, extract_windows
 from sls_tpu_torch.scores.writer import log_probs_to_scores
 
 
@@ -162,6 +164,29 @@ class BatchingEngine:
         if wav.size == 0:
             raise ValueError("empty audio")
         return self._submit_row(pad_or_tile(wav, self.cut))
+
+    def submit_windows(self, wav: np.ndarray, stride: Optional[int] = None) -> List[Future]:
+        """One future per overlapping window of a long 16 kHz utterance.
+
+        The windows are those of the offline full-utterance path
+        (``evaluation/overlap.extract_windows``: stride cut // 2 by
+        default, the last window right-aligned, short audio tiled to one
+        window), so a served long-clip score aggregates the window scores
+        that ``score_full_utterance`` aggregates.  They interleave with
+        other requests in the batcher."""
+        wav = np.asarray(wav, np.float32).reshape(-1)
+        if wav.size == 0:
+            raise ValueError("empty audio")
+        return [self._submit_row(row) for row in extract_windows(wav, self.cut, stride)]
+
+    def score_long(self, wav: np.ndarray, stride: Optional[int] = None,
+                   aggregate: str = "mean", timeout: Optional[float] = 120.0):
+        """Blocking long-clip score: (aggregated P(bonafide), n_windows);
+        ``aggregate`` is 'mean', 'min' or 'max', as in
+        ``score_full_utterance``."""
+        agg = aggregator(aggregate)
+        vals = [f.result(timeout) for f in self.submit_windows(wav, stride)]
+        return float(agg(vals)), len(vals)
 
     def _submit_row(self, row: np.ndarray) -> Future:
         fut: Future = Future()

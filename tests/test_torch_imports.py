@@ -12,6 +12,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "sls_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
+# the long-clip evaluation slice's modules: the import checks below must
+# cover them
+LONG_CLIP_MODULES = ("sls_tpu_torch.kernels.attention", "sls_tpu_torch.evaluation.overlap",
+                     "sls_tpu_torch.metrics.eer", "sls_tpu_torch.analysis.temporal")
+
 _BLOCKED_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu)\b(?!_torch)", re.M)
 _REFERENCE_NAME = re.compile(r"\bsls_tpu\.")
 
@@ -27,12 +32,20 @@ def test_every_module_imports_with_jax_blocked():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    names = set(res.stdout.split())
+    assert len(names) >= 24
+    assert set(LONG_CLIP_MODULES) <= names
+
+
+def test_long_clip_modules_are_checked():
+    checked = {str(p.relative_to(ROOT)).removesuffix(".py").replace("/", ".")
+               for p in PORT_FILES}
+    assert set(LONG_CLIP_MODULES) <= checked
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
