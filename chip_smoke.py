@@ -9,10 +9,12 @@ Phases:
      versions and TF32 flags (both off), and the nvcc build of every
      kernel source with its seconds;
   2. each kernel against its plain PyTorch version at the flagship
-     shapes (N = 36*201, D 1024, M 4096, k 128, window 8), timed with
-     CUDA events beside its plain version, a PyTorch library call
-     computing the same function where there is one (a yardstick only;
-     the port never calls it) and its bound;
+     shapes (N = 36*201, D 1024, M 4096, k 128, window 8; the front-end
+     tail on conv 0's [36, 12919, 512] output), timed with CUDA events
+     beside its plain version, a PyTorch library call computing the same
+     function where there is one (a yardstick only; the port never calls
+     it) and its bound; the front-end tail also beside the unfused route
+     it replaces;
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -38,14 +40,23 @@ Phases:
      BatchingEngine.score_long over the same clips;
   7. the fused_attention=True flagship, as phases 3 and 4, on the
      flagship's weights: fused_attention launched once per layer and
-     batch, log-probs held against the default path's.
+     batch, log-probs held against the default path's;
+  8. the fused_frontend=True flagship, as phase 7: frontend_tail_fused
+     launched once per batch (and never on another path), log-probs held
+     against the default path's; then one T 5120 unwindowed forward on
+     each front-end route, with its ms and peak device memory;
+  9. the int8 serving flagship (int8_serving, scope "ffn": bench.py's
+     serving config), as phases 3 and 4, held to the reference's own
+     bounds against the default path (per-frame encoder cosine > 0.99,
+     P(bonafide) within 0.05).
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
 line with the card and the throughputs; the last line is
 ``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
-``--profile`` adds each path's eval-step device time by kernel, and a
-T 5120 forward's (torch.profiler), as ``{"profile": ...}`` lines.
+``--profile`` adds each path's eval-step device time by kernel, a T 5120
+forward's, and the conv front-end's on both routes (torch.profiler), as
+``{"profile": ...}`` lines.
 """
 
 from __future__ import annotations
@@ -84,30 +95,46 @@ ROUTE_TOL = 2e-2       # long-T log-probs, attention kernel route vs the einsum 
 # port's bf16 encoder.  Measured on the long-T encoder output (relative
 # L2) and on the fused_attention path's log-probs (max abs).
 ROUTE_ENVELOPE = (1.5, 2.0)
+# The front-end tail kernel's tensor cores round its fp32 conv sums
+# otherwise than cuDNN's fp32 convs, so some bf16 level roundings flip
+# and the flips travel on through six levels.  The plain version with
+# fp64 sums is another rounding of the same function: its distance from
+# the plain version is the noise, and the kernel must lie within 2x of
+# it (relative L2, on the batch's first utterances), with no output
+# further off than 1e-2 of max|plain| (one or two ulps at the largest).
+FRONTEND_ENVELOPE = 2.0
+FRONTEND_REL_TOL = 1e-2
+# int8 serving against the default path: the reference's own acceptance
+# (tests/test_int8.py): per-frame encoder-output cosine and P(bonafide)
+INT8_COS_MIN = 0.99
+INT8_SCORE_TOL = 0.05
 WINDOW = 8             # the window-overlap variant's window (SAEConfig default)
 
 SAE_KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
                "window_vote_fused", "sae_decode_fused")
 ATTN_KERNELS = ("flash_attention_long", "fused_attention", "fused_attention_heads")
-KERNELS = SAE_KERNELS + ATTN_KERNELS
+FRONTEND_KERNELS = ("frontend_tail_fused",)
+KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS
 
 
 def path_kernels(layers: int) -> dict:
     """Each batch path's launches per batch by kernel; every other kernel
     never."""
+    sae = {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}
     return {
-        "flagship": {"sae_encode_topk_fused": 1, "sae_decode_fused": 1},
+        "flagship": sae,
         "window_overlap": {"sae_encode_fused": 1, "window_vote_fused": 1,
                            "sae_decode_fused": 1},
-        "fused_attention": {"sae_encode_topk_fused": 1, "sae_decode_fused": 1,
-                            "fused_attention": layers},
+        "fused_attention": {**sae, "fused_attention": layers},
+        "fused_frontend": {**sae, "frontend_tail_fused": 1},
+        "int8_ffn": sae,
     }
 
 
 # the hand-written kernels' names as the profiler shows them
 OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
                "window_mask_kernel", "frame_vote_kernel", "decode_kernel",
-               "attention_bf16_kernel")
+               "attention_bf16_kernel", "frontend_ln0_kernel", "frontend_conv_bf16_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
@@ -405,6 +432,74 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
     return rows
 
 
+def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters):
+    """Kernel 8 against its plain version on the main path's input: conv
+    0's output of a batch of audio, the [B, N0, C] view over its
+    channels-first storage, through a front-end with seeded random
+    weights, biases and norm affines.  Also times the unfused route from
+    the same conv-0 output (cuDNN convs with their fp32 LN / GELU
+    passes), which this kernel replaces on the fused_frontend path."""
+    fe = xlsr.ConvFeatureExtractor(enc_cfg, device)
+    g = torch.Generator(device=device).manual_seed(2)
+    with torch.no_grad():
+        xlsr.init_weights_(fe, g)
+        for conv in fe.conv:
+            if conv.bias is not None:
+                conv.bias.normal_(0.0, 0.1, generator=g)
+        for norm in fe.norm:
+            norm.weight.normal_(1.0, 0.1, generator=g)
+            norm.bias.normal_(0.0, 0.1, generator=g)
+    args, kw = fe.tail_fused_args()
+    few = 3  # utterances the fp64-sum envelope is measured on
+    with torch.inference_mode():
+        wav = torch.from_numpy(wavs).to(device)
+        h0 = fe.conv[0](wav[:, None, :].to(enc_cfg.dtype)).transpose(1, 2)
+        out = tf.frontend_tail_fused(h0, *args, **kw)
+        sync(torch, device)
+        ref = tf.frontend_tail_fused_plain(h0, *args, **kw)
+        ref64 = tf.frontend_tail_fused_plain(h0[:few], *args, **kw, sum_dtype=torch.float64)
+        out, ref, ref64 = out.float(), ref.float(), ref64.float()
+
+        def rel_l2(a, b):
+            return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+        err = float((out - ref).abs().max())
+        tol = FRONTEND_REL_TOL * float(ref.abs().max())
+        rel, envelope = rel_l2(out[:few], ref[:few]), rel_l2(ref64, ref[:few])
+        ulps = bf16_ulps_exceeded(torch, out, ref)
+        check(err <= tol, "frontend_tail_fused agrees with its plain version (max)")
+        check(rel <= FRONTEND_ENVELOPE * envelope,
+              "frontend_tail_fused lies within the fp64-sum envelope of its plain version")
+        b, n0, c = h0.shape
+        lengths = tf.tail_lengths(n0, kw["specs"])
+        ops = sum(2.0 * b * n_out * k * c * c for n_out, (k, _) in zip(lengths[1:], kw["specs"]))
+        weights = sum(w.numel() for w in args[0])
+        params = sum(t.numel() for t in args[1:])
+        bytes_ = (h0.numel() + weights + out.numel()) * h0.element_size() + 4.0 * params
+        bound_ms, by = bound(bytes_, ops, PEAK_BF16_FLOPS)
+        row = {
+            "name": "frontend_tail_fused", "route": "cuda",
+            "source": "sls_tpu_torch/kernels/csrc/frontend_tail.cu",
+            "replaces": "sls_tpu/kernels/frontend.py:184",
+            "max_abs_err": err, "tolerance": tol, "elements_beyond_one_bf16_ulp": ulps,
+            "elements": out.numel(), "rel_l2_vs_plain": rel, "envelope_rel_l2": envelope,
+            "shape": {"h0": list(h0.shape), "out": list(out.shape), "specs": kw["specs"]},
+            "ms": timed(torch, lambda: tf.frontend_tail_fused(h0, *args, **kw), device, iters),
+            "plain_ms": timed(torch, lambda: tf.frontend_tail_fused_plain(h0, *args, **kw),
+                              device, max(iters // 4, 1)),
+            "library_ms": None,  # no one PyTorch call computes this function
+            "unfused_route_ms": timed(torch, lambda: fe.tail(h0), device, iters),
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
+        }
+    row["kernel_ms"] = row["ms"]
+    log(f"frontend_tail_fused {row['shape']}: max_abs_err {err:.3e} (tolerance {tol:.3e}), "
+        f"{ulps} of {out.numel()} elements beyond one bf16 ulp; relative L2 {rel:.3e} against "
+        f"an fp64-sum envelope of {envelope:.3e} (x{FRONTEND_ENVELOPE}); {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, unfused route {row['unfused_route_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by})")
+    return row
+
+
 def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
     """Device time of ``reps`` eval steps by kernel name (torch.profiler's
     device-side events), the hand-written kernels' part of it, and the device's
@@ -475,9 +570,11 @@ def main(argv=None) -> int:
     from sls_tpu_torch import config as C
     from sls_tpu_torch.data.audio import pad_or_tile
     from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
+    from sls_tpu_torch.encoder import xlsr
     from sls_tpu_torch.evaluation import overlap as ev
     from sls_tpu_torch.kernels import attention as ta
     from sls_tpu_torch.kernels import build
+    from sls_tpu_torch.kernels import frontend as tf
     from sls_tpu_torch.kernels import sae_kernels as tk
     from sls_tpu_torch.models.detector import Detector
     from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
@@ -515,7 +612,7 @@ def main(argv=None) -> int:
         # the long-T route from 256 frames on, so phase 6 takes it
         enc_cfg = C.tiny_xlsr_config(dtype=torch.bfloat16, flash_long_t=256)
         sae_cfg = C.SAEConfig(activation_dim=64, dict_size=256, k=32, use_pallas=True)
-        cut = 4000
+        cut = 4005  # the fused front-end's gate holds here (not at 4000)
         long_targets = (64, 256, 512)
         attn_long, attn_short = (1, 512, 256, 4), (batch, 50, 4, 64)
     cfg = C.ModelConfig(encoder=enc_cfg, sae=sae_cfg)
@@ -531,7 +628,16 @@ def main(argv=None) -> int:
         f"{attn_short} (short T), bf16")
     rows += phase_attention(torch, ta, device, attn_long, attn_short,
                             iters=20 if on_card else 2)
-    wrappers = {name: getattr(tk if name in SAE_KERNELS else ta, name) for name in KERNELS}
+    n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
+    wavs = synthetic_wavs(n_utts, cut, args.seed)
+    wire = to_wire(wavs, "int16")
+    log(f"phase 2: the conv front-end tail on conv 0's output of {batch} utterances of {cut} "
+        f"samples, {enc_cfg.conv_layers[0][0]} channels, {enc_cfg.dtype}")
+    rows.append(phase_frontend(torch, tf, xlsr, enc_cfg, wavs[:batch], device,
+                               iters=20 if on_card else 2))
+    modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
+               **{n: tf for n in FRONTEND_KERNELS}}
+    wrappers = {name: getattr(modules[name], name) for name in KERNELS}
     per_batch = path_kernels(enc_cfg.encoder_layers)
 
     def zero_counts():
@@ -541,9 +647,6 @@ def main(argv=None) -> int:
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
-    n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
-    wavs = synthetic_wavs(n_utts, cut, args.seed)
-    wire = to_wire(wavs, "int16")
     reps = 10 if on_card else 1
 
     def drive(label, model, exp_cfg, encode_k, encode_p):
@@ -817,31 +920,101 @@ def main(argv=None) -> int:
           "score_long equals score_full_utterance")
     results["long_clip"] = {"launches": long_launches}
 
-    # -- phase 7: the fused_attention flagship, on the flagship's weights -----
-    fa_cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(enc_cfg, fused_attention=True))
-    log(f"phase 7: fused_attention=True flagship, the flagship's weights, batch {batch}")
-    fa_model = Detector(fa_cfg, device="meta")
-    fa_model.load_state_dict(model.state_dict(), strict=True, assign=True)
-    results["fused_attention"] = drive(
-        "fused_attention", fa_model, dataclasses.replace(exp, model=fa_cfg),
+    # -- phases 7-9: the flagship's weights on other encoder routes ---------
+    encode_topk = (
         lambda f: tk.sae_encode_topk_fused(f, sae.W_enc, sae.b_enc, sae.b_dec, k
                                            ).reshape(2, frames, -1),
         lambda f: tk.sae_encode_topk_fused_plain(f, sae.W_enc, sae.b_enc, sae.b_dec, k
                                                  ).reshape(2, frames, -1))
+
+    def drive_route(label, **enc_changes):
+        m = sharing(dataclasses.replace(enc_cfg, **enc_changes))
+        return m, drive(label, m, dataclasses.replace(exp, model=m.config), *encode_topk)
+
     with torch.inference_mode():
         w = dequantize_wire(torch.from_numpy(wire[:batch]).to(device))
-        lp_fused, lp_default = fa_model.score(w), model.score(w)
+        lp_default = model.score(w)
         lp_fp32 = sharing(dataclasses.replace(enc_cfg, flash_long_t=0, dtype=torch.float32,
                                               approx_gelu=True)).score(w)
-    fa_res = {key: float((a - b).abs().max()) for key, a, b in (
-        ("fused_vs_default", lp_fused, lp_default), ("fused_vs_fp32", lp_fused, lp_fp32),
-        ("default_vs_fp32", lp_default, lp_fp32))}
-    log(f"fused_attention path, one batch of {batch}: log_probs max_abs {json.dumps(fa_res)}")
-    check(fa_res["fused_vs_fp32"] <= ROUTE_ENVELOPE[0] * fa_res["default_vs_fp32"],
-          "fused-attention log-probs are within the default path's bf16 envelope of fp32")
-    check(fa_res["fused_vs_default"] <= ROUTE_ENVELOPE[1] * fa_res["default_vs_fp32"],
-          "fused-attention log-probs agree with the default path within its envelope")
-    results["fused_attention"]["log_probs_max_abs"] = fa_res
+
+    def route_envelope(label, m):
+        """One batch's log-probs on route ``m`` within the default path's
+        bf16 envelope of fp32 (ROUTE_ENVELOPE)."""
+        with torch.inference_mode():
+            lp = m.score(w)
+        res = {key: float((a - b).abs().max()) for key, a, b in (
+            ("route_vs_default", lp, lp_default), ("route_vs_fp32", lp, lp_fp32),
+            ("default_vs_fp32", lp_default, lp_fp32))}
+        log(f"{label} path, one batch of {batch}: log_probs max_abs {json.dumps(res)}")
+        results[label]["log_probs_max_abs"] = res
+        if not on_card:
+            return  # the max over the rehearsal's few tiny log-probs is noise, not an envelope
+        check(res["route_vs_fp32"] <= ROUTE_ENVELOPE[0] * res["default_vs_fp32"],
+              f"{label} log-probs are within the default path's bf16 envelope of fp32")
+        check(res["route_vs_default"] <= ROUTE_ENVELOPE[1] * res["default_vs_fp32"],
+              f"{label} log-probs agree with the default path within its envelope")
+
+    log(f"phase 7: fused_attention=True flagship, the flagship's weights, batch {batch}")
+    fa_model, results["fused_attention"] = drive_route("fused_attention", fused_attention=True)
+    route_envelope("fused_attention", fa_model)
+
+    # -- phase 8: the fused conv front-end ------------------------------------
+    log(f"phase 8: fused_frontend=True flagship, the flagship's weights, batch {batch}")
+    ff_model, results["fused_frontend"] = drive_route("fused_frontend", fused_frontend=True)
+    check(ff_model.encoder.feature_extractor._fused_ok(cut),
+          "the fused front-end's gate holds at the flagship's cut")
+    route_envelope("fused_frontend", ff_model)
+    # one T 5120 unwindowed forward on each front-end route
+    rows_, t_bucket = ev.unwindowed_batch(long_clips[2][1], buckets)
+    w_long = torch.from_numpy(rows_).to(device)
+    ff_long = {"T": t_bucket, "samples": rows_.shape[1]}
+    lp_long = {}
+    for route, m in (("unfused", model), ("fused", ff_model)):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with torch.inference_mode():
+            lp_long[route] = m.score(w_long)
+        sync(torch, device)
+        ff_long[route] = {"launches": tf.frontend_tail_fused.launches}
+        ff_long[route]["ms_per_forward"] = forward_ms(m, w_long, 3 if on_card else 1)
+        if on_card:
+            ff_long[route]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ff_long["log_probs_max_abs"] = float((lp_long["fused"] - lp_long["unfused"]).abs().max())
+    log(f"fused front-end, T {t_bucket} forward on both front-end routes: {json.dumps(ff_long)}")
+    check(ff_long["log_probs_max_abs"] <= ROUTE_TOL,
+          "long-T log-probs agree across the front-end routes")
+    if on_card:
+        check(ff_long["unfused"]["launches"] == 0 and ff_long["fused"]["launches"] == 1,
+              "the long-T forward takes the fused route once, and only when it is set")
+        if args.profile:
+            fe_ms = {}
+            for route, m in (("unfused", model), ("fused", ff_model)):
+                def front_end(x, m=m):
+                    with torch.inference_mode():
+                        return m.encoder.feature_extractor(x)
+                prof = profile_step(torch, front_end, w)
+                fe_ms[route] = prof["device_ms_per_step"]
+                log(json.dumps({"profile": {"path": f"front_end_{route}", **prof}}))
+            results["fused_frontend"]["front_end_device_ms"] = fe_ms
+    results["fused_frontend"]["long_t"] = ff_long
+
+    # -- phase 9: int8 serving (bench.py's serving config) ---------------------
+    log(f"phase 9: int8_serving flagship (scope ffn), the flagship's weights, batch {batch}")
+    q_model, results["int8_ffn"] = drive_route("int8_ffn", int8_serving=True, int8_scope="ffn")
+    with torch.inference_mode():
+        f_q, f_d = q_model.encoder(w).float(), model.encoder(w).float()
+        cos = torch.nn.functional.cosine_similarity(f_q.flatten(0, 1), f_d.flatten(0, 1), dim=-1)
+        p_q, p_d = torch.exp(q_model.score(w)[:, 1]), torch.exp(lp_default[:, 1])
+    q_res = {"min_frame_cosine": float(cos.min()),
+             "p_bonafide_max_abs": float((p_q - p_d).abs().max())}
+    log(f"int8_ffn path, one batch of {batch} against the default path: {json.dumps(q_res)} "
+        f"(bounds: cosine > {INT8_COS_MIN}, P(bonafide) within {INT8_SCORE_TOL})")
+    check(q_res["min_frame_cosine"] > INT8_COS_MIN, "int8 encoder output keeps every frame's "
+          "direction")
+    check(q_res["p_bonafide_max_abs"] <= INT8_SCORE_TOL, "int8 P(bonafide) near the default's")
+    results["int8_ffn"]["against_default"] = q_res
 
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
@@ -855,12 +1028,14 @@ def main(argv=None) -> int:
     kernels = [{key: row[key] for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
         "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance",
-        "elements_beyond_one_bf16_ulp", "cases") if key in row} for row in rows]
+        "elements_beyond_one_bf16_ulp", "cases", "unfused_route_ms", "rel_l2_vs_plain",
+        "envelope_rel_l2") if key in row} for row in rows]
     batch_paths = [label for label in results if label != "long_clip"]
     print(json.dumps({"run": {"card": card, "batch": batch, "layers": layers,
                               "paths": {label: {key: results[label][key] for key in (
                                   "eval_utts_per_s", "score_utts_per_s", "peak_gib",
-                                  "log_probs_max_abs") if key in results[label]}
+                                  "log_probs_max_abs", "long_t", "front_end_device_ms",
+                                  "against_default") if key in results[label]}
                                   for label in batch_paths},
                               "long_clip": long_res}}))
     print(json.dumps({"kernels": kernels}))

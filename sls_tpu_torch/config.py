@@ -54,9 +54,11 @@ class XLSRConfig:
     dtype: Any = torch.bfloat16
     remat: bool = False
     # fused_attention and flash_long_t (0: off) pick the attention
-    # kernel routes (encoder/xlsr.py); int8_serving, grouped_conv_einsum,
-    # fused_frontend and seq_axis select reference paths the port has not
-    # taken on yet (ROADMAP), and the encoder raises when one is set
+    # kernel routes, fused_frontend the fused conv front-end kernel, and
+    # int8_serving / int8_scope the int8 serving matmuls (encoder/xlsr.py,
+    # all eval-only); grouped_conv_einsum and seq_axis select reference
+    # paths the port has not taken on yet (ROADMAP), and the encoder
+    # raises when one is set
     fused_attention: bool = False
     int8_serving: bool = False
     int8_scope: str = "ffn"

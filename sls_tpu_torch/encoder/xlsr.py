@@ -10,9 +10,14 @@ Attention routes as the reference's eval path does: at T >=
 ``flash_long_t`` with T % 256 == 0 through ``flash_attention_long``,
 else with ``fused_attention`` set through ``fused_attention`` (both the
 hand-written kernel of ``kernels/attention.py``), else the plain einsum
-path.  Not ported yet (ROADMAP): the int8, fused front-end, einsum
-pos-conv and sequence-parallel branches.  Configs that select them
-raise instead of silently taking another path.
+path.  With ``fused_frontend`` set, the conv front-end after conv 0 runs
+through ``frontend_tail_fused`` (``kernels/frontend.py``) wherever the
+reference's gate holds.  ``int8_serving`` runs fc1/fc2 (and with
+``int8_scope="all"`` the attention projections) through ``int8_dot``.
+All of these routes are eval-only in the reference; the port has no
+training yet.  Not ported yet (ROADMAP): the einsum pos-conv and
+sequence-parallel branches.  Configs that select them raise instead of
+silently taking another path.
 """
 
 from __future__ import annotations
@@ -25,15 +30,13 @@ from torch import nn
 
 from sls_tpu_torch.config import XLSRConfig
 from sls_tpu_torch.kernels.attention import flash_attention_long, fused_attention
-
-
-def fp32_layer_norm(xf: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    """flax ``nn.LayerNorm`` fast-variance math over the trailing axis
-    (E[x^2] - E[x]^2 clamped at 0), on fp32 input."""
-    mean = xf.mean(-1, keepdim=True)
-    mean2 = (xf * xf).mean(-1, keepdim=True)
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
-    return (xf - mean) * torch.rsqrt(var + eps) * scale + bias
+from sls_tpu_torch.kernels.frontend import (
+    choose_tile,
+    fp32_layer_norm,
+    frontend_tail_fused,
+    tail_lengths,
+)
+from sls_tpu_torch.quant.int8 import int8_dot
 
 
 def _fp32_group_norm_per_channel(x, scale, bias, eps=1e-5):
@@ -65,17 +68,21 @@ class Fp32LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
-    ``dtype``; parameters stay fp32.  weight is [out, in]."""
+    ``dtype``; parameters stay fp32.  weight is [out, in].  With
+    ``int8`` the reference's ``QuantizableDense`` eval path: the product
+    through ``int8_dot``, then the bias in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, int8: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.int8 = dtype, int8
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.int8:
+            return int8_dot(x, self.weight.t(), dt) + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -103,7 +110,11 @@ class ConvFeatureExtractor(nn.Module):
     """Strided 1-D conv waveform front-end: [B, samples] -> [B, T, C].
 
     'layer_norm' mode (XLS-R) normalises after every conv; 'default'
-    group-norms only the first layer."""
+    group-norms only the first layer.  Conv 0 runs on cuDNN on both
+    routes; the rest runs unfused (``tail``) or, with ``fused_frontend``
+    where ``_fused_ok`` holds, through ``frontend_tail_fused``, which at
+    bf16 is a different function (fp32 conv sums reach the norm
+    unrounded)."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -121,17 +132,62 @@ class ConvFeatureExtractor(nn.Module):
             in_ch = dim
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        h = wav[:, :, None].to(self.config.dtype)  # [B, samples, 1]
+        # [B, T, C] views over channels-first storage between layers
+        h = self.conv[0](h.transpose(1, 2)).transpose(1, 2)
+        if self._fused_ok(wav.shape[1]):
+            args, kwargs = self.tail_fused_args()
+            return frontend_tail_fused(h, *args, **kwargs)
+        return self.tail(h)
+
+    def tail(self, h: torch.Tensor) -> torch.Tensor:
+        """The unfused route from conv 0's output: norm and GELU of level
+        0, then conv, norm and GELU per layer."""
         cfg = self.config
-        h = wav[:, :, None].to(cfg.dtype)  # [B, samples, 1]
         for i, conv in enumerate(self.conv):
-            # [B, T, C] views over channels-first storage between layers
-            h = conv(h.transpose(1, 2)).transpose(1, 2)
+            if i:
+                h = conv(h.transpose(1, 2)).transpose(1, 2)
             if cfg.extractor_mode == "layer_norm":
                 h = self.norm[i](h)
             elif i == 0:
                 h = _fp32_group_norm_per_channel(h, self.norm[0].weight, self.norm[0].bias)
             h = gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
         return h
+
+    def tail_fused_args(self):
+        """``frontend_tail_fused``'s arguments after ``h0``: the tail's WIO
+        weights, and the biases and norm affines stacked as the reference
+        stacks them."""
+        cfg = self.config
+        tail = self.conv[1:]
+        if cfg.conv_bias:
+            bias_stack = torch.stack([conv.bias for conv in tail])
+        else:
+            bias_stack = torch.zeros(len(tail), tail[0].weight.shape[0],
+                                     device=tail[0].weight.device)
+        args = (tuple(conv.weight.permute(2, 1, 0) for conv in tail),  # [k, in, out]
+                bias_stack,
+                torch.stack([norm.weight for norm in self.norm]),
+                torch.stack([norm.bias for norm in self.norm]))
+        return args, dict(specs=tuple((k, s) for _, k, s in cfg.conv_layers[1:]),
+                          approx_gelu=cfg.use_approx_gelu, out_dtype=cfg.dtype)
+
+    def _fused_ok(self, num_samples: int) -> bool:
+        """The reference's gate (a shape decision, not a fallback): the
+        flag, 'layer_norm' mode, equal widths, at least two layers, and a
+        feasible tiling.  The reference's ``train=True`` also bypasses
+        it; the port has no training yet."""
+        cfg = self.config
+        if not cfg.fused_frontend or cfg.extractor_mode != "layer_norm":
+            return False
+        dims = [d for d, _, _ in cfg.conv_layers]
+        if len(set(dims)) != 1 or len(cfg.conv_layers) < 2:
+            return False
+        specs = tuple((k, s) for _, k, s in cfg.conv_layers[1:])
+        d0, k0, s0 = cfg.conv_layers[0]
+        n0 = (num_samples - k0) // s0 + 1
+        t_out = tail_lengths(n0, specs)[-1]
+        return choose_tile(t_out, n0, specs, d0, itemsize=cfg.dtype.itemsize) is not None
 
 
 class PositionalConv(nn.Module):
@@ -163,10 +219,11 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.config = config
         C, dt = config.embed_dim, config.dtype
-        self.q_proj = Dense(C, C, dt, device)
-        self.k_proj = Dense(C, C, dt, device)
-        self.v_proj = Dense(C, C, dt, device)
-        self.out_proj = Dense(C, C, dt, device)
+        int8 = config.int8_serving and config.int8_scope == "all"
+        self.q_proj = Dense(C, C, dt, device, int8)
+        self.k_proj = Dense(C, C, dt, device, int8)
+        self.v_proj = Dense(C, C, dt, device, int8)
+        self.out_proj = Dense(C, C, dt, device, int8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -201,8 +258,8 @@ class TransformerLayer(nn.Module):
         self.self_attn = SelfAttention(cfg, device)
         self.self_attn_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
         self.final_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
-        self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device)
-        self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device)
+        self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device, cfg.int8_serving)
+        self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device, cfg.int8_serving)
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -221,7 +278,7 @@ class TransformerLayer(nn.Module):
         return self.final_layer_norm(x + self._ffn(x))
 
 
-_UNPORTED = ("int8_serving", "fused_frontend", "grouped_conv_einsum", "seq_axis")
+_UNPORTED = ("grouped_conv_einsum", "seq_axis")
 
 
 class XLSREncoder(nn.Module):

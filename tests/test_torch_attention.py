@@ -181,7 +181,9 @@ def test_encoder_configs_that_no_longer_raise():
 
     XLSREncoder(tcfg.tiny_xlsr_config(fused_attention=True), device="cpu")
     XLSREncoder(tcfg.tiny_xlsr_config(flash_long_t=2048), device="cpu")
-    for name, value in (("seq_axis", "seq"), ("fused_frontend", True)):
+    XLSREncoder(tcfg.tiny_xlsr_config(fused_frontend=True), device="cpu")
+    XLSREncoder(tcfg.tiny_xlsr_config(int8_serving=True, int8_scope="all"), device="cpu")
+    for name, value in (("seq_axis", "seq"), ("grouped_conv_einsum", True)):
         with pytest.raises(NotImplementedError, match=name):
             XLSREncoder(tcfg.tiny_xlsr_config(**{name: value}), device="cpu")
 
