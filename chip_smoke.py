@@ -48,14 +48,30 @@ Phases:
   9. the int8 serving flagship (int8_serving, scope "ffn": bench.py's
      serving config), as phases 3 and 4, held to the reference's own
      bounds against the default path (per-frame encoder cosine > 0.99,
-     P(bonafide) within 0.05).
+     P(bonafide) within 0.05);
+ 10. sequence-parallel unwindowed scoring at full width: four ranks (one
+     process each, all on the one card, joined over gloo; on a host with
+     four cards the same rule picks NCCL and a card a rank), each with
+     the flagship's weights under sp_model_config, score phase 6's clips
+     through score_utterances_unwindowed(sp_mesh=sp_mesh(4)); every rank
+     must give the same scores, within ROUTE_TOL of the single-process
+     scores, with sp_flash_attention_long launched once per layer and
+     forward at T >= 2560 on every rank and no other kernel at all; the
+     150 s clip (two rows) again on a dp2 x sp2 mesh; the gathered
+     encoder output at T 2560 held to ROUTE_ENVELOPE; ms per forward and
+     per all-gather, which are of ranks time-sharing one card;
+ 11. a multi-process score file: two ranks each score their host_shard
+     of phase 3's utterances through produce_scores into a part file;
+     the merged file holds every utterance once with phase 3's score,
+     every rank returns the global count, and no part file is left.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
 line with the card and the throughputs; the last line is
 ``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
 ``--profile`` adds each path's eval-step device time by kernel, a T 5120
-forward's, and the conv front-end's on both routes (torch.profiler), as
+forward's, the conv front-end's on both routes, and every rank's
+sequence-parallel forward at both long buckets (torch.profiler), as
 ``{"profile": ...}`` lines.
 """
 
@@ -112,7 +128,8 @@ WINDOW = 8             # the window-overlap variant's window (SAEConfig default)
 
 SAE_KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
                "window_vote_fused", "sae_decode_fused")
-ATTN_KERNELS = ("flash_attention_long", "fused_attention", "fused_attention_heads")
+ATTN_KERNELS = ("flash_attention_long", "sp_flash_attention_long", "fused_attention",
+                "fused_attention_heads")
 FRONTEND_KERNELS = ("frontend_tail_fused",)
 KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS
 
@@ -138,6 +155,10 @@ OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
+SP_RANKS = 4       # phase 10: ranks of the sequence-parallel job
+SP_MESHES = ((SP_RANKS, 1), (2, 2))  # its meshes as (n_seq, n_data): sp4 and dp2 x sp2
+SCORE_RANKS = 2    # phase 11: ranks writing one score file
+RANKS_TIMEOUT_S = 420.0  # a multi-process phase that outlasts this is killed and fails
 
 
 def log(msg: str) -> None:
@@ -150,10 +171,11 @@ def check(cond: bool, what: str) -> None:
 
 
 def gpu_line() -> str:
+    """Each card's name and power limit, one line a card."""
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+    return res.stdout.strip()
 
 
 def timed(torch, fn, device, iters: int) -> float:
@@ -357,10 +379,14 @@ def bf16_ulps_exceeded(torch, out, ref) -> int:
 
 
 def phase_attention(torch, ta, device, long_shape, short_shape, iters):
-    """Kernels 6, 9 and 10 (one CUDA kernel behind three wrappers) against
-    their plain versions at the main paths' shapes, bf16: row 6 at the
-    long-T bucket [B, T, C] (also at T / 2 and at Tq = T / 4 against Tkv =
-    T), rows 9 and 10 at the short-T flagship [B, T, H, Dh]."""
+    """Kernels 6, 7, 9 and 10 (one CUDA kernel behind four wrappers)
+    against their plain versions at the main paths' shapes, bf16: row 6 at
+    the long-T bucket [B, T, C] (also at T / 2 and at Tq = T / 4 against
+    Tkv = T); row 7 in one process (a group of one: k and v given whole)
+    on a rank's q strip at every shape phase 10 gives it (a strip of four
+    at T and T / 2 on the sp4 mesh, a strip of two at T on dp2 x sp2),
+    and the strips of each mesh against row 6's output on the same
+    inputs; rows 9 and 10 at the short-T flagship [B, T, H, Dh]."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -413,9 +439,35 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
                          inputs(*[(b, tq, c)] + [(b, tkv, c)] * 2), h,
                          "sls_tpu/kernels/flash_attention.py:52")
                  for tq, tkv in ((t, t), (t // 2, t // 2), (t // 4, t))]
-    row6 = dict(long_rows[0], cases=[{key: r[key] for key in (
-        "shape", "max_abs_err", "tolerance", "elements_beyond_one_bf16_ulp", "ms", "plain_ms",
-        "library_ms", "bound_ms", "bound_by")} for r in long_rows])
+    case_keys = ("shape", "max_abs_err", "tolerance", "elements_beyond_one_bf16_ulp", "ms",
+                 "plain_ms", "library_ms", "bound_ms", "bound_by")
+    row6 = dict(long_rows[0], cases=[{key: r[key] for key in case_keys} for r in long_rows])
+
+    sp_rows = [measure("sp_flash_attention_long",
+                       lambda q, k, v: ta.sp_flash_attention_long(q, k, v, h),
+                       lambda q, k, v: ta.sp_flash_attention_long_plain(q, k, v, h),
+                       inputs(*[(b, tkv // n_seq, c)] + [(b, tkv, c)] * 2), h,
+                       "sls_tpu/kernels/flash_attention.py:123")
+               # sp4 scores clips at both long buckets, dp2 x sp2 the two-row
+               # clip at T (one row a data coordinate)
+               for tkv, n_seq in ((t, SP_MESHES[0][0]), (t // 2, SP_MESHES[0][0]),
+                                  (t, SP_MESHES[1][0]))]
+    row7 = dict(sp_rows[0], cases=[{key: r[key] for key in case_keys} for r in sp_rows])
+    # rows are independent and the K/V tile order does not depend on Tq,
+    # so a rank's strip should be bit-equal to its rows of the full output
+    q, k, v = inputs((b, t, c), (b, t, c), (b, t, c))
+    whole = ta.flash_attention_long(q, k, v, h)
+    row7["strips_vs_whole_max_abs"], row7["strips_bit_equal"] = 0.0, True
+    for n_seq, _ in SP_MESHES:
+        strips = torch.cat([ta.sp_flash_attention_long(piece.contiguous(), k, v, h)
+                            for piece in q.chunk(n_seq, dim=1)], dim=1)
+        diff = float((strips.float() - whole.float()).abs().max())
+        equal = bool(torch.equal(strips, whole))
+        log(f"sp_flash_attention_long: {n_seq} strips of T {t} against flash_attention_long on "
+            f"the same inputs: max_abs {diff:.3e}, bit-equal {equal}")
+        check(diff <= row7["tolerance"], f"{n_seq} strips agree with the whole-sequence kernel")
+        row7["strips_vs_whole_max_abs"] = max(row7["strips_vs_whole_max_abs"], diff)
+        row7["strips_bit_equal"] = row7["strips_bit_equal"] and equal
 
     b, t, h, dh = short_shape
     args = inputs(*[(b, t, h, dh)] * 3)
@@ -426,7 +478,7 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
                     lambda q, k, v: ta.fused_attention_heads(q, k, v, h),
                     lambda q, k, v: ta.fused_attention_heads_plain(q, k, v, h), flat, h,
                     "sls_tpu/kernels/attention.py:56")
-    rows = [row6, row9, row10]
+    rows = [row6, row7, row9, row10]
     for row in rows:
         row["kernel_ms"] = row["ms"]
     return rows
@@ -500,43 +552,111 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters):
     return row
 
 
-def profile_step(torch, step, batch_wire, reps: int = 3) -> dict:
-    """Device time of ``reps`` eval steps by kernel name (torch.profiler's
-    device-side events), the hand-written kernels' part of it, and the device's
-    busy share of the window's wall time (one stream: kernels do not
-    overlap, so their durations add)."""
-    from collections import defaultdict
-
+def device_time_by_kernel(fn, reps: int = 3, top: int = 15) -> dict:
+    """Run ``fn`` once to warm up, then ``reps`` times under torch.profiler
+    on the current CUDA device.  Returns the wall and device ms per call,
+    the device's busy share of the window's wall time (kernel durations
+    added up: on one stream they do not overlap; a collective's kernel on
+    its own stream, which also counts the time it waits for the other
+    ranks, can push the share past 1), ``by_name_ms`` per call for every
+    kernel name, and the ``top`` names.  Raises when the profiler saw no
+    device time."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(batch_wire)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            step(batch_wire)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = defaultdict(float)
+    by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total_us = sum(by_name.values())
-    check(total_us > 0, "the profiler saw device time")
-    ours = {name: sum(us for key, us in by_name.items() if name in key)
-            for name in OWN_KERNELS}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    if total_us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "steps": reps,
         "wall_ms_per_step": wall_us / reps / 1e3,
         "device_ms_per_step": total_us / reps / 1e3,
         "device_busy_share": total_us / wall_us,
         "kernel_names": len(by_name),
-        "own_kernels_ms_per_step": {k: v / reps / 1e3 for k, v in ours.items()},
+        "by_name_ms": {name: us / reps / 1e3 for name, us in ranked},
         "top": [{"kernel": name[:100], "ms_per_step": us / reps / 1e3, "share": us / total_us}
-                for name, us in top],
+                for name, us in ranked[:top]],
     }
+
+
+def profile_step(step, batch_wire, reps: int = 3) -> dict:
+    """Device time of ``reps`` eval steps by kernel name (torch.profiler's
+    device-side events), the hand-written kernels' part of it, and the
+    device's busy share of the window's wall time."""
+    prof = device_time_by_kernel(lambda: step(batch_wire), reps)
+    by_name = prof.pop("by_name_ms")
+    prof["own_kernels_ms_per_step"] = {
+        name: sum(ms for key, ms in by_name.items() if name in key) for name in OWN_KERNELS}
+    return prof
+
+
+# Phase 10's measurements, run inside every rank as jobs of
+# ``parallel/workers.py::sp_score_rank`` (the spawned ranks import this
+# file for them): ``fn(job, model, mesh, device) -> dict``.
+
+
+def sp_time_job(job, model, mesh, device) -> dict:
+    """``forward_ms`` of one sequence-parallel ``score`` of ``job["wav"]``,
+    ``enqueue_ms`` the host takes to enqueue one (no wait for the device),
+    ``gather_ms`` of one all-gather of a layer's stacked keys and values
+    (what the path does), ``gather_split_ms`` of the same bytes as two
+    gathers, and ``peak_gib`` of device memory over the forwards."""
+    import torch
+    from sls_tpu_torch.parallel.distributed import all_gather_cat
+    from sls_tpu_torch.parallel.sequence import sp_scoring_fn
+
+    wav = torch.from_numpy(np.asarray(job["wav"], np.float32)).to(device)
+    fwd = sp_scoring_fn(model, mesh)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res = {"forward_ms": timed(torch, lambda: fwd(wav), device, int(job["iters"]))}
+    t0 = time.perf_counter()
+    fwd(wav)
+    res["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None
+    shard = model.encoder.shard_for(wav, mesh)
+    kv = torch.zeros(2, wav.shape[0] // shard.n_data, shard.chunk, model.config.encoder.embed_dim,
+                     dtype=model.config.encoder.dtype, device=device)
+    gathers = 4 * int(job["iters"])
+    res["gather_ms"] = timed(torch, lambda: all_gather_cat(kv, shard.seq_group, dim=2), device,
+                             gathers)
+    res["gather_split_ms"] = timed(
+        torch, lambda: [all_gather_cat(x, shard.seq_group, dim=1) for x in kv.unbind(0)],
+        device, gathers)
+    res["gather_shape"] = list(kv.shape)
+    return res
+
+
+def sp_profile_job(job, model, mesh, device) -> dict:
+    """This rank's device time of one sequence-parallel ``score`` by
+    kernel: the top names, and the sums over the collectives' kernels and
+    the attention kernel."""
+    import torch
+    from sls_tpu_torch.parallel.sequence import sp_scoring_fn
+
+    wav = torch.from_numpy(np.asarray(job["wav"], np.float32)).to(device)
+    fwd = sp_scoring_fn(model, mesh)
+    prof = device_time_by_kernel(lambda: fwd(wav), int(job["iters"]), top=12)
+    by_name = prof.pop("by_name_ms")
+    for label, parts in (("collectives_ms_per_step", ("nccl", "gloo")),
+                         ("attention_kernel_ms_per_step", ("attention_bf16_kernel",))):
+        prof[label] = sum(ms for name, ms in by_name.items()
+                          if any(part in name.lower() for part in parts))
+    return {"profile": prof}
 
 
 def synthetic_wavs(n: int, cut: int, seed: int) -> np.ndarray:
@@ -577,6 +697,10 @@ def main(argv=None) -> int:
     from sls_tpu_torch.kernels import frontend as tf
     from sls_tpu_torch.kernels import sae_kernels as tk
     from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.parallel import distributed as dist
+    from sls_tpu_torch.parallel import workers
+    from sls_tpu_torch.parallel.launch import launch
+    from sls_tpu_torch.parallel.sequence import sp_model_config
     from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
     from sls_tpu_torch.serve.engine import BatchingEngine
     from sls_tpu_torch.serve.scorer import build_scorer_from_params
@@ -614,7 +738,7 @@ def main(argv=None) -> int:
         sae_cfg = C.SAEConfig(activation_dim=64, dict_size=256, k=32, use_pallas=True)
         cut = 4005  # the fused front-end's gate holds here (not at 4000)
         long_targets = (64, 256, 512)
-        attn_long, attn_short = (1, 512, 256, 4), (batch, 50, 4, 64)
+        attn_long, attn_short = (1, 1024, 256, 4), (batch, 50, 4, 64)
     cfg = C.ModelConfig(encoder=enc_cfg, sae=sae_cfg)
     exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
     frames = enc_cfg.num_frames(cut)
@@ -714,14 +838,14 @@ def main(argv=None) -> int:
                 return model.score(dequantize_wire(torch.from_numpy(w).to(device)))
 
         res = {"launches": launches, "eval_utts_per_s": throughput(step),
-               "score_utts_per_s": throughput(score_only)}
+               "score_utts_per_s": throughput(score_only), "scores": dict(zip(ids, scores))}
         log(f"{label} throughput at batch {batch}: eval step {res['eval_utts_per_s']:.1f} "
             f"utts/s, score() {res['score_utts_per_s']:.1f} utts/s")
         if on_card:
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             log(f"{label} peak device memory {res['peak_gib']:.2f} GiB")
             if args.profile:
-                prof = profile_step(torch, step, wire[:batch])
+                prof = profile_step(step, wire[:batch])
                 log(json.dumps({"profile": {"path": label, **prof}}))
 
         # serving: a bucket batch, a full batch and a bucket batch
@@ -841,8 +965,8 @@ def main(argv=None) -> int:
     # the same weights on the reference's einsum route (a config, not a
     # fallback), and in fp32 on that route (the truth both bf16 routes
     # are measured from; tanh GELU as the bf16 encoder's)
-    def sharing(enc):
-        m = Detector(dataclasses.replace(cfg, encoder=enc), device="meta")
+    def sharing(enc, sae_=sae_cfg):
+        m = Detector(dataclasses.replace(cfg, encoder=enc, sae=sae_), device="meta")
         m.load_state_dict(model.state_dict(), strict=True, assign=True)
         return m
 
@@ -872,7 +996,7 @@ def main(argv=None) -> int:
                     "kernel_vs_einsum_route": rel_l2(f_k, f_p),
                     "kernel_route_vs_fp32": rel_l2(f_k, truth),
                     "einsum_route_vs_fp32": rel_l2(f_p, truth)}
-                del truth
+                envelope_rows = (rows_, f_p, truth)  # phase 10 holds its route to them
             if len(rows_) == 1 and t_bucket >= long_targets[-2]:
                 ms = forward_ms(model, w, 3 if on_card else 1)
                 long_res["ms_per_forward"][t_bucket] = ms
@@ -880,7 +1004,7 @@ def main(argv=None) -> int:
                     plain_model, w, 3 if on_card else 1)
                 long_res["audio_s_per_s"][t_bucket] = rows_.shape[1] / 16000 / (ms / 1e3)
                 if on_card and args.profile and t_bucket == long_targets[-1]:
-                    prof = profile_step(torch, lambda x: model.score(x), w)
+                    prof = profile_step(lambda x: model.score(x), w)
                     log(json.dumps({"profile": {"path": f"long_clip_T{t_bucket}", **prof}}))
     log(f"long clip: {json.dumps(long_res)}")
     check(long_res["max_log_prob_diff"] <= ROUTE_TOL,
@@ -994,7 +1118,7 @@ def main(argv=None) -> int:
                 def front_end(x, m=m):
                     with torch.inference_mode():
                         return m.encoder.feature_extractor(x)
-                prof = profile_step(torch, front_end, w)
+                prof = profile_step(front_end, w)
                 fe_ms[route] = prof["device_ms_per_step"]
                 log(json.dumps({"profile": {"path": f"front_end_{route}", **prof}}))
             results["fused_frontend"]["front_end_device_ms"] = fe_ms
@@ -1016,6 +1140,130 @@ def main(argv=None) -> int:
     check(q_res["p_bonafide_max_abs"] <= INT8_SCORE_TOL, "int8 P(bonafide) near the default's")
     results["int8_ffn"]["against_default"] = q_res
 
+    # -- phase 10: sequence-parallel unwindowed scoring -------------------------
+    sp_cfg = sp_model_config(cfg)
+    sp_enc = sp_cfg.encoder
+    backend = dist.choose_backend(device.type, SP_RANKS)
+    log(f"phase 10: sequence-parallel scoring of {[u for u, _ in long_clips]} on {SP_RANKS} "
+        f"ranks, meshes sp{SP_RANKS} and dp2 x sp2, backend {backend}"
+        + (f"; the ranks share {torch.cuda.device_count()} card(s), so their times are of "
+           "processes time-sharing it, not of a rank with a card of its own"
+           if on_card and backend == "gloo" else ""))
+    # the single-process program of the same config: the layout is the
+    # only difference (sp_model_config also clears use_pallas)
+    base_model = sharing(dataclasses.replace(sp_enc, seq_axis=None), sp_cfg.sae)
+    base = list(ev.score_utterances_unwindowed(base_model, iter(long_clips), enc_cfg,
+                                               t_targets=long_targets, device=device))
+    long_rows = {t: ev.unwindowed_batch(w, buckets)[0] for (_, w), (_, _, t) in
+                 zip(long_clips[1:3], base[1:3])}  # one row each at the two long buckets
+    jobs = [dict(kind="unwindowed", mesh=0, clips=long_clips, t_targets=long_targets),
+            dict(kind="unwindowed", mesh=1, clips=long_clips[3:], t_targets=long_targets),
+            dict(kind="encoder", mesh=0, wav=envelope_rows[0])]
+    jobs += [dict(kind=sp_time_job, mesh=0, wav=row, iters=3 if on_card else 1)
+             for row in long_rows.values()]
+    if on_card and args.profile:
+        jobs += [dict(kind=sp_profile_job, mesh=0, wav=row, iters=3)
+                 for row in long_rows.values()]
+    ranks = launch(workers.sp_score_rank,
+                   SP_RANKS, ([(sp_cfg, {"seed": args.seed})], device.type,
+                              list(SP_MESHES), jobs),
+                   device_type=device.type, timeout_s=RANKS_TIMEOUT_S)
+
+    def sp_layers(t_bucket, n_seq):
+        """sp_flash_attention_long calls one forward makes: the encoder's gate."""
+        takes = (sp_enc.flash_long_t and t_bucket >= sp_enc.flash_long_t
+                 and t_bucket % n_seq == 0 and ta.sp_block_q(t_bucket // n_seq))
+        return layers if takes else 0
+
+    sp_scores = ranks[0][0]["scores"]
+    for utt, score, t_bucket in sp_scores:
+        log(f"  {utt}: score {score:.6f}, bucket T {t_bucket}")
+    check([(u, t) for u, _, t in sp_scores] == [(u, t) for u, _, t in base],
+          "sequence-parallel scores in input order, in the single-process buckets")
+    across = max(abs(a[1] - b[1]) for r in ranks for j in (0, 1)
+                 for a, b in zip(r[j]["scores"], ranks[0][j]["scores"]))
+    d_base = max(abs(a[1] - b[1]) for a, b in zip(sp_scores, base))
+    d_long = max(abs(a[1] - b[1]) for a, b in zip(sp_scores, long_out))
+    d_mesh = abs(ranks[0][1]["scores"][0][1] - sp_scores[3][1])
+    sp_res = {"backend": backend, "ranks": SP_RANKS, "ranks_share_a_card": bool(
+        on_card and backend == "gloo"), "max_score_diff": {
+            "across_ranks": across, "vs_single_process": d_base,
+            "vs_phase_6_kernel_sae": d_long, "dp2xsp2_vs_sp4": d_mesh}}
+    check(across <= 1e-6, "every rank gives the same scores")
+    check(d_base <= ROUTE_TOL, "sequence-parallel scores agree with the single-process scores")
+    check(d_long <= ROUTE_TOL, "sequence-parallel scores agree with phase 6's scores")
+    check(d_mesh <= ROUTE_TOL, "the dp2 x sp2 score of the two-row clip agrees with sp4's")
+    want_calls = [sum(sp_layers(t, SP_MESHES[0][0]) for _, _, t in base),
+                  sp_layers(base[3][2], SP_MESHES[1][0])]
+    for r, rank in enumerate(ranks):
+        check([rank[j]["sp_calls"] for j in (0, 1)] == want_calls,
+              f"rank {r}: sp_flash_attention_long called {want_calls} times over the jobs")
+        if not on_card:
+            continue
+        for j, clips_ in ((0, base), (1, base[3:])):
+            for (utt, _, t_bucket), delta in zip(clips_, rank[j]["per_clip"]):
+                want = {n: 0 for n in KERNELS}
+                want["sp_flash_attention_long"] = sp_layers(t_bucket, SP_MESHES[j][0])
+                check(delta == want, f"rank {r}, job {j}, {utt}: launches {delta}, want {want}")
+    f_sp = torch.from_numpy(ranks[0][2]["features"]).to(device)
+    sp_l2 = {"sp_route_vs_einsum_route": rel_l2(f_sp, envelope_rows[1]),
+             "sp_route_vs_fp32": rel_l2(f_sp, envelope_rows[2]),
+             "einsum_route_vs_fp32": envelope}
+    sp_res["encoder_rel_l2"] = sp_l2
+    check(sp_l2["sp_route_vs_fp32"] <= ROUTE_ENVELOPE[0] * envelope,
+          "the sequence-parallel encoder output is within the einsum route's envelope of fp32")
+    check(sp_l2["sp_route_vs_einsum_route"] <= ROUTE_ENVELOPE[1] * envelope,
+          "the sequence-parallel encoder output agrees with the einsum route within its "
+          "envelope")
+    for job, t_bucket in enumerate(long_rows, start=3):  # the sp_time_job results, in bucket order
+        timing = ranks[0][job]
+        sp_res[f"T{t_bucket}"] = {
+            "forward_ms_by_rank": [r[job]["forward_ms"] for r in ranks],
+            "enqueue_ms_by_rank": [r[job]["enqueue_ms"] for r in ranks],
+            "gather_ms": timing["gather_ms"], "gather_split_ms": timing["gather_split_ms"],
+            "gather_shape": timing["gather_shape"],
+            "peak_gib_per_rank": timing["peak_gib"]}
+    log(f"sequence parallel: {json.dumps(sp_res)}")
+    if on_card and args.profile:
+        for job, t_bucket in enumerate(long_rows, start=3 + len(long_rows)):
+            for r, rank in enumerate(ranks):
+                log(json.dumps({"profile": {"path": f"sequence_parallel_T{t_bucket}", "rank": r,
+                                            **rank[job]["profile"]}}))
+    del envelope_rows, f_sp
+    results["sequence_parallel"] = {"launches": {
+        n: sum(ranks[0][j]["launches"][n] for j in (0, 1)) for n in KERNELS}}
+
+    # -- phase 11: a multi-process score file -----------------------------------
+    log(f"phase 11: {SCORE_RANKS} ranks score their host_shard of the {n_utts} utterances into "
+        f"one score file")
+    utt_ids = [f"utt_{i}" for i in range(n_utts)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = str(Path(tmp) / "scores.txt")
+        ranks = launch(workers.produce_scores_rank,
+                       SCORE_RANKS, (cfg, {"seed": args.seed}, device.type, wire, utt_ids,
+                                     batch, out_path),
+                       device_type=device.type, timeout_s=RANKS_TIMEOUT_S)
+        ids, merged = read_score_file(out_path)
+        left = sorted(q.name for q in Path(tmp).iterdir() if q.name != "scores.txt")
+    single = results["flagship"]["scores"]
+    d_file = max(abs(sc - single[u]) for u, sc in zip(ids, merged))
+    log(f"multi-process score file: {len(ids)} lines from shards of "
+        f"{[r['local'] for r in ranks]}; returned counts {[r['count'] for r in ranks]}; merged vs "
+        f"single-process max_abs {d_file:.3e} (tolerance {SERVE_TOL}); files left {left}")
+    check(sorted(ids) == sorted(utt_ids), "the merged file has every utterance once")
+    check(ids == [u for r in range(SCORE_RANKS) for u in utt_ids[r::SCORE_RANKS]],
+          "the merged file holds the ranks' shards in rank order")
+    check(all(r["count"] == n_utts for r in ranks), "every rank returns the global count")
+    check(not left, "no part file is left")
+    check(d_file <= SERVE_TOL, "merged scores equal the single-process scores")
+    if on_card:
+        for r, rank in enumerate(ranks):
+            want = {n: 0 for n in KERNELS}
+            for n in per_batch["flagship"]:
+                want[n] = -(-rank["local"] // batch)
+            check(rank["launches"] == want, f"rank {r}: launches {rank['launches']}, want {want}")
+    results["multi_process_scores"] = {"launches": ranks[0]["launches"]}
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -1029,15 +1277,16 @@ def main(argv=None) -> int:
         "name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
         "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance",
         "elements_beyond_one_bf16_ulp", "cases", "unfused_route_ms", "rel_l2_vs_plain",
-        "envelope_rel_l2") if key in row} for row in rows]
-    batch_paths = [label for label in results if label != "long_clip"]
-    print(json.dumps({"run": {"card": card, "batch": batch, "layers": layers,
+        "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal") if key in row}
+        for row in rows]
+    batch_paths = [label for label in results if "eval_utts_per_s" in results[label]]
+    print(json.dumps({"run": {"card": card.replace("\n", "; "), "batch": batch, "layers": layers,
                               "paths": {label: {key: results[label][key] for key in (
                                   "eval_utts_per_s", "score_utts_per_s", "peak_gib",
                                   "log_probs_max_abs", "long_t", "front_end_device_ms",
                                   "against_default") if key in results[label]}
                                   for label in batch_paths},
-                              "long_clip": long_res}}))
+                              "long_clip": long_res, "sequence_parallel": sp_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Fixed-shape batches (own copy of the in-memory parts of
 ``sls_tpu/data/pipeline.py``): ``Batch``, ``to_wire`` and
-``ArrayLoader``.  The file-backed loader and FLAC decoding are not
-ported yet."""
+``ArrayLoader`` with ``host_shard`` (the reference's
+``DatasetIndex.host_shard`` for the in-memory loader).  The file-backed
+loader and FLAC decoding are not ported yet."""
 
 from __future__ import annotations
 
@@ -47,6 +48,21 @@ class ArrayLoader:
         self.labels = labels
         self.utt_ids = utt_ids or [f"utt_{i}" for i in range(len(wavs))]
         self.batch_size = batch_size
+
+    def host_shard(self, process_index: int, process_count: int,
+                   drop_remainder: bool = False) -> "ArrayLoader":
+        """Per-process slice for multi-process runs: process i reads
+        examples i, i+N, i+2N, ... (strided, so class balance is kept per
+        process).  ``drop_remainder=True`` cuts every shard to the same
+        length, floor(n / N), which training loaders need (every process
+        runs the same number of steps); scoring shards keep the default
+        and cover every example."""
+        sel = list(range(process_index, len(self.wavs), process_count))
+        if drop_remainder:
+            sel = sel[: len(self.wavs) // process_count]
+        return ArrayLoader(
+            self.wavs[sel], None if self.labels is None else self.labels[sel],
+            [self.utt_ids[i] for i in sel], self.batch_size)
 
     def num_batches(self) -> int:
         return (len(self.wavs) + self.batch_size - 1) // self.batch_size

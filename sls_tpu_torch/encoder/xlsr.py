@@ -10,14 +10,28 @@ Attention routes as the reference's eval path does: at T >=
 ``flash_long_t`` with T % 256 == 0 through ``flash_attention_long``,
 else with ``fused_attention`` set through ``fused_attention`` (both the
 hand-written kernel of ``kernels/attention.py``), else the plain einsum
-path.  With ``fused_frontend`` set, the conv front-end after conv 0 runs
-through ``frontend_tail_fused`` (``kernels/frontend.py``) wherever the
+path.  With ``seq_axis`` set the layer stack runs sequence-parallel
+(below) and attention goes through ``sp_flash_attention_long`` or the
+einsum path against gathered keys and values.  With ``fused_frontend``
+set, the conv front-end after conv 0 runs through
+``frontend_tail_fused`` (``kernels/frontend.py``) wherever the
 reference's gate holds.  ``int8_serving`` runs fc1/fc2 (and with
 ``int8_scope="all"`` the attention projections) through ``int8_dot``.
-All of these routes are eval-only in the reference; the port has no
-training yet.  Not ported yet (ROADMAP): the einsum pos-conv and
-sequence-parallel branches.  Configs that select them raise instead of
-silently taking another path.
+``grouped_conv_einsum`` computes the pos-conv as per-tap block-diagonal
+einsums on the conv's own weight.  All of these routes are eval-only in
+the reference; the port has no training yet.
+
+Sequence parallelism (``seq_axis``).  The reference pins the frame axis
+of the layer stack's activations to a mesh axis and lets the compiler
+derive the program; here the program is written out.  ``forward`` takes
+the batch's cut on the ``Mesh`` as an argument (``shard_for(wav, mesh)``,
+built once by the caller): the conv front-end, projection and pos-conv
+run on the whole clip on every rank, then each rank keeps its chunk of
+frames (``parallel/mesh.py::SeqShard``; and its rows, where the mesh's
+data axis divides the batch) through the layers and the final norm,
+which are row-parallel in T except for attention's keys and values.  The
+encoder then returns this rank's ``[B_loc, T_loc, C]``.  With
+``seq_axis`` set and no mesh given (``shard_for``), or no shard, it raises.
 """
 
 from __future__ import annotations
@@ -29,13 +43,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from sls_tpu_torch.config import XLSRConfig
-from sls_tpu_torch.kernels.attention import flash_attention_long, fused_attention
+from sls_tpu_torch.kernels.attention import (
+    flash_attention_long,
+    fused_attention,
+    sp_block_q,
+    sp_flash_attention_long,
+)
 from sls_tpu_torch.kernels.frontend import (
     choose_tile,
     fp32_layer_norm,
     frontend_tail_fused,
     tail_lengths,
 )
+from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.quant.int8 import int8_dot
 
 
@@ -204,10 +224,35 @@ class PositionalConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        h = self.conv(x.transpose(1, 2)).transpose(1, 2)
-        if cfg.conv_pos % 2 == 0:
-            h = h[:, :-1, :]
+        if cfg.grouped_conv_einsum:
+            h = self._einsum_grouped(x)
+        else:
+            h = self.conv(x.transpose(1, 2)).transpose(1, 2)
+            if cfg.conv_pos % 2 == 0:
+                h = h[:, :-1, :]
         return gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
+
+    def _einsum_grouped(self, x: torch.Tensor) -> torch.Tensor:
+        """The grouped conv as one block-diagonal einsum per tap, summed
+        in ``dtype`` tap by tap as the reference's scan sums them: the
+        same function on the same parameter (the conv's [C, C/G, K]
+        weight read as [K, G, C/G in, C/G out]).  The reference takes it
+        under tensor-parallel meshes, where its compiler mis-scales
+        grouped-conv weight gradients; here it is a single-device
+        function until tensor parallelism is ported."""
+        cfg = self.config
+        K, G, C = cfg.conv_pos, cfg.conv_pos_groups, cfg.embed_dim
+        cg = C // G
+        dt = cfg.dtype
+        B, T = x.shape[0], x.shape[1]
+        xp = F.pad(x.to(dt), (0, 0, K // 2, K - 1 - K // 2))
+        # weight[g * cg + o, c, k] -> wg[k, g, c, o]
+        wg = self.conv.weight.to(dt).reshape(G, cg, cg, K).permute(3, 0, 2, 1)
+        acc = torch.zeros(B, T, G, cg, dtype=dt, device=x.device)
+        for k in range(K):
+            xs = xp[:, k:k + T].reshape(B, T, G, cg)
+            acc = acc + torch.einsum("btgc,gco->btgo", xs, wg[k])
+        return acc.reshape(B, T, C) + self.conv.bias.to(dt)
 
 
 class SelfAttention(nn.Module):
@@ -225,23 +270,37 @@ class SelfAttention(nn.Module):
         self.v_proj = Dense(C, C, dt, device, int8)
         self.out_proj = Dense(C, C, dt, device, int8)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None) -> torch.Tensor:
+        """x: [B, T, C], or with ``shard`` this rank's frames of it, whose
+        queries then meet every frame's keys and values."""
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)  # [B, T, C]
-        # Both kernel routes are eval-only, as the reference's
+        q = q * (D ** -0.5)
+        # The kernel routes are eval-only, as the reference's
         # ``deterministic`` gate makes them: the port has no training yet,
         # and the kernel has no backward.
-        if cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
+        if shard is not None:
+            # The reference's gate, which depends on shapes and the mesh
+            # only, so every rank takes the same route: the long-T kernel
+            # where the frames divide evenly into strips with a q-block of
+            # 128 rows or more and the data axis divides the batch, else
+            # the einsum path below against gathered k and v.
+            # ``fused_attention`` is off under ``seq_axis``.
+            if (cfg.flash_long_t and shard.frames >= cfg.flash_long_t and shard.even
+                    and sp_block_q(shard.frames // shard.n_seq) and shard.rows_divide):
+                return self.out_proj(sp_flash_attention_long(q, k, v, H, shard.seq_group))
+            k, v = shard.gather_frames(torch.stack([k, v]), dim=2).unbind(0)
+        elif cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
             # long-T eval (unwindowed full utterances): the [B, H, T, T]
             # scores never reach device memory
-            return self.out_proj(flash_attention_long(q * (D ** -0.5), k, v, H))
-        q, k, v = (t.reshape(B, T, H, D) for t in (q, k, v))
-        if cfg.fused_attention:
-            ctx = fused_attention(q * (D ** -0.5), k, v)
-            return self.out_proj(ctx.reshape(B, T, C))
-        scores = torch.einsum("bthd,bshd->bhts", q * (D ** -0.5), k)
+            return self.out_proj(flash_attention_long(q, k, v, H))
+        q = q.reshape(B, T, H, D)
+        k, v = k.reshape(B, -1, H, D), v.reshape(B, -1, H, D)
+        if cfg.fused_attention and shard is None:
+            return self.out_proj(fused_attention(q, k, v).reshape(B, T, C))
+        scores = torch.einsum("bthd,bshd->bhts", q, k)
         probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
         return self.out_proj(ctx)
@@ -270,29 +329,24 @@ class TransformerLayer(nn.Module):
             h = torch.relu(h.float()).to(cfg.dtype)
         return self.fc2(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None) -> torch.Tensor:
         if self.config.layer_norm_first:
-            x = x + self.self_attn(self.self_attn_layer_norm(x))
+            x = x + self.self_attn(self.self_attn_layer_norm(x), shard)
             return x + self._ffn(self.final_layer_norm(x))
-        x = self.self_attn_layer_norm(x + self.self_attn(x))
+        x = self.self_attn_layer_norm(x + self.self_attn(x, shard))
         return self.final_layer_norm(x + self._ffn(x))
-
-
-_UNPORTED = ("grouped_conv_einsum", "seq_axis")
 
 
 class XLSREncoder(nn.Module):
     """waveform [B, samples] -> [B, T, embed_dim]: conv features, fp32
     LayerNorm, projection, positional conv, transformer layers, final
     LayerNorm (pre-LN mode).  ``return_hidden_states=True`` also returns
-    every layer's output (before the final LayerNorm)."""
+    every layer's output (before the final LayerNorm).  With
+    ``config.seq_axis`` the outputs are this rank's rows and frames on
+    ``mesh`` (the module docstring)."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
-        for name in _UNPORTED:
-            if getattr(config, name):
-                raise NotImplementedError(
-                    f"XLSRConfig.{name} selects a path not ported yet (ROADMAP)")
         cfg = self.config = config
         c0 = cfg.conv_layers[-1][0]
         self.feature_extractor = ConvFeatureExtractor(cfg, device)
@@ -303,16 +357,47 @@ class XLSREncoder(nn.Module):
             TransformerLayer(cfg, device) for _ in range(cfg.encoder_layers))
         self.encoder_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
 
-    def forward(self, wav: torch.Tensor, return_hidden_states: bool = False):
+    def shard_for(self, wav: torch.Tensor, mesh: Optional[Mesh]) -> Optional[SeqShard]:
+        """The ``shard`` that ``forward`` takes for this batch on ``mesh``:
+        None without ``seq_axis``.  A mesh and ``seq_axis`` come together
+        or not at all: the reference's bare sharding annotation does not
+        resolve without an ambient mesh either."""
         cfg = self.config
+        if not cfg.seq_axis:
+            if mesh is not None:
+                raise ValueError(
+                    f"model seq_axis={cfg.seq_axis!r} is not an axis of mesh "
+                    f"{mesh.axis_names}; build the config with sp_model_config()")
+            return None
+        if mesh is None:
+            raise ValueError(
+                f"XLSRConfig.seq_axis={cfg.seq_axis!r} needs the mesh: pass mesh= to "
+                "the Detector (parallel/sequence.py::sp_scoring_fn does)")
+        return SeqShard(mesh, cfg.seq_axis, wav.shape[0], cfg.num_frames(wav.shape[1]))
+
+    def forward(self, wav: torch.Tensor, return_hidden_states: bool = False,
+                shard: Optional[SeqShard] = None):
+        """``shard`` is ``shard_for(wav, mesh)``, which the caller builds
+        once and also needs for what follows the encoder."""
+        cfg = self.config
+        if (shard is None) != (not cfg.seq_axis):
+            raise ValueError(f"XLSRConfig.seq_axis={cfg.seq_axis!r} and shard={shard!r} do "
+                             "not go together: pass shard=shard_for(wav, mesh)")
+        if shard is not None:
+            wav = shard.take_rows(wav)
         feats = self.post_extract_norm(self.feature_extractor(wav))
         x = self.post_extract_proj(feats)
         x = x + self.pos_conv(x)
         if not cfg.layer_norm_first:
             x = self.encoder_layer_norm(x)
+        if shard is not None:
+            # sequence parallelism starts here: the O(T) front-end above
+            # ran on the whole clip; the O(T^2) layer stack runs on this
+            # rank's frames
+            x = shard.take_frames(x)
         hidden_states: List[torch.Tensor] = []
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, shard)
             if return_hidden_states:
                 hidden_states.append(x)
         if cfg.layer_norm_first:

@@ -10,7 +10,8 @@
 - ``length_buckets`` / ``score_utterances_unwindowed``: one forward a
   clip with the whole waveform in context (``--unwindowed``); long
   buckets (T >= ``flash_long_t``) run attention through the hand-written
-  kernel (``kernels/attention.py``).
+  kernel (``kernels/attention.py``); with ``sp_mesh`` each forward runs
+  sequence-parallel over the mesh's ranks (``parallel/sequence.py``).
 
 The functions take the port's ``Detector`` and a device (the card by
 default) in place of ``(model, params)``, and run all compute under
@@ -32,6 +33,7 @@ from sls_tpu_torch.analysis.temporal import boundary_discontinuity, mean_tempora
 from sls_tpu_torch.data.audio import pad_or_tile
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.metrics.eer import compute_eer
+from sls_tpu_torch.parallel.sequence import sp_scoring_fn
 from sls_tpu_torch.scores.writer import log_probs_to_scores
 from sls_tpu_torch.train.steps import dequantize_wire
 
@@ -50,10 +52,11 @@ def _to_device(wav, dev: torch.device) -> torch.Tensor:
     return dequantize_wire(w.to(dev))
 
 
-def _log_probs(model, rows: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """log_probs [n, 2] of float32 waveform rows, left in flight."""
+def _log_probs(model, rows: np.ndarray, dev: torch.device, fwd=None) -> torch.Tensor:
+    """log_probs [n, 2] of float32 waveform rows, left in flight, through
+    ``fwd`` (default: ``model.score``)."""
     with torch.inference_mode():
-        return model.score(_to_device(rows.astype(np.float32, copy=False), dev))
+        return (fwd or model.score)(_to_device(rows.astype(np.float32, copy=False), dev))
 
 
 def _tile_rows(rows: np.ndarray, batch_size: int) -> np.ndarray:
@@ -303,13 +306,19 @@ def score_utterances_unwindowed(model, audio_iter, enc_cfg,
     Clips are padded to length buckets (``unwindowed_batch``); a clip past
     the largest bucket scores the mean of its chunks.  Buckets at or above
     ``enc_cfg.flash_long_t`` run attention through the long-T kernel.
+
+    With ``sp_mesh`` (a ('data', 'seq') mesh, ``parallel/sequence.py``)
+    each forward runs sequence-parallel: the clip's frames are cut over
+    the 'seq' ranks, so one long utterance uses the whole mesh.  ``model``
+    must be built with ``sp_model_config`` then, and every rank of the
+    mesh must iterate the same clips in the same order (the ranks meet in
+    collectives inside each forward); every rank yields the same scores.
+
     Yields (utt_id, score, bucket frame count) in input order."""
-    if sp_mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel scoring is not ported yet (ROADMAP item 12)")
     dev = resolve_device(device)
+    fwd = sp_scoring_fn(model, sp_mesh) if sp_mesh is not None else None
     buckets = length_buckets(enc_cfg, t_targets)
     for utt_id, wav in audio_iter:
         rows, t_bucket = unwindowed_batch(wav, buckets)
-        scores = log_probs_to_scores(_log_probs(model, rows, dev))
+        scores = log_probs_to_scores(_log_probs(model, rows, dev, fwd))
         yield utt_id, float(scores.mean()), t_bucket

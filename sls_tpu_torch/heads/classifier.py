@@ -3,15 +3,21 @@
 ``MeanPoolClassifier``: time-mean pooling, then LayerNorm (eps 1e-6, the
 flax default; fast-variance form) -> Linear(d, 256) -> ReLU ->
 Linear(256, 2), log-softmax outputs, all in fp32.  Class 1 = bonafide.
-Dropout is an identity at inference and is not ported.
+Dropout is an identity at inference and is not ported.  Under sequence
+parallelism the features are this rank's frames, and the mean-pool is a
+local sum, one all-reduce over the sequence axis and a division by the
+global frame count.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from sls_tpu_torch.encoder.xlsr import Dense, Fp32LayerNorm
+from sls_tpu_torch.parallel.mesh import SeqShard
 
 
 class MeanPoolClassifier(nn.Module):
@@ -22,8 +28,13 @@ class MeanPoolClassifier(nn.Module):
         self.fc1 = Dense(in_dim, hidden_dim, torch.float32, device)
         self.fc2 = Dense(hidden_dim, num_classes, torch.float32, device)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        """features: [B, T, D] -> log-probabilities [B, num_classes]."""
-        pooled = features.float().mean(dim=1)
+    def forward(self, features: torch.Tensor,
+                shard: Optional[SeqShard] = None) -> torch.Tensor:
+        """features: [B, T, D] -> log-probabilities [B, num_classes].  With
+        ``shard``, features are this rank's frames of ``shard.frames``."""
+        if shard is None:
+            pooled = features.float().mean(dim=1)
+        else:
+            pooled = shard.sum_frames(features.float().sum(dim=1)) / shard.frames
         h = torch.relu(self.fc1(self.norm(pooled)))
         return torch.log_softmax(self.fc2(h), dim=-1)

@@ -1,15 +1,20 @@
 """Attention kernels: wrappers over ``csrc/attention.cu``, with plain versions.
 
-Counterpart of ``sls_tpu/kernels/flash_attention.py`` (single-device
-part) and ``sls_tpu/kernels/attention.py``.  Their three Pallas kernels
-compute one function, softmax(q kᵀ) v per head with an fp32 softmax,
-the probabilities rounded to v's dtype and fp32 sums, and differ only in
+Counterpart of ``sls_tpu/kernels/flash_attention.py`` and
+``sls_tpu/kernels/attention.py``.  Their Pallas kernels compute one
+function, softmax(q kᵀ) v per head with an fp32 softmax, the
+probabilities rounded to v's dtype and fp32 sums, and differ only in
 layout and grid.  So one CUDA kernel, which reads q, k and v in place as
-``[B, T, H*64]``, serves three wrappers with the reference's names and
+``[B, T, H*64]``, serves four wrappers with the reference's names and
 contracts:
 
 - ``flash_attention_long(q, k, v, num_heads, block_q=256)`` on
   ``[B, Tq, C]`` / ``[B, Tkv, C]``, the long-T eval route;
+- ``sp_flash_attention_long(q, k, v, num_heads, group, block_q=256)`` on
+  each rank's ``[B, T / n, C]`` shards, the sequence-parallel long-T
+  route: k and v are all-gathered over the sequence axis's process group
+  (a library collective, as the reference's ``all_gather`` lies outside
+  its Pallas body), then the kernel runs on the local q strip;
 - ``fused_attention(q, k, v)`` on ``[B, T, H, Dh]``, the
   ``XLSRConfig.fused_attention`` route;
 - ``fused_attention_heads(q, k, v, num_heads, h_blk=2)`` on
@@ -32,6 +37,7 @@ from typing import Optional
 import torch
 
 from sls_tpu_torch.kernels import build
+from sls_tpu_torch.parallel.distributed import all_gather_cat
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +67,21 @@ def _attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
 
 def flash_attention_long_plain(q, k, v, num_heads: int) -> torch.Tensor:
     """Plain version of ``flash_attention_long``."""
+    return _attention_plain(q, k, v, num_heads)
+
+
+def _gather_kv(k, v, group):
+    """Every frame's k and v from the group's ``[B, T_loc, C]`` shards, in
+    one collective: contiguous ``[B, T, C]`` each (the two halves of one
+    ``[2, B, T, C]`` buffer)."""
+    return all_gather_cat(torch.stack([k, v]), group, dim=2).unbind(0)
+
+
+def sp_flash_attention_long_plain(q, k, v, num_heads: int, group=None) -> torch.Tensor:
+    """Plain version of ``sp_flash_attention_long``: gather, then the
+    plain attention of the local q strip."""
+    if group is not None:
+        k, v = _gather_kv(k, v, group)
     return _attention_plain(q, k, v, num_heads)
 
 
@@ -163,6 +184,42 @@ def flash_attention_long(q, k, v, num_heads: int, block_q: int = 256) -> torch.T
 
 
 flash_attention_long.launches = 0
+
+
+def sp_flash_attention_long(q, k, v, num_heads: int, group=None,
+                            block_q: int = 256) -> torch.Tensor:
+    """Sequence-parallel long-T attention: q stays local, k and v are
+    all-gathered.
+
+    q, k, v: this rank's ``[B, T_loc, C]`` frame shards (q pre-scaled),
+    the same shape on every rank of ``group``, the sequence axis's
+    process group.  Each rank gathers k and v along frames, stacked so
+    that one collective moves both, into contiguous ``[B, T, C]`` and runs
+    the kernel on its q strip, so the ``[B, H, T_loc, T]`` scores never
+    reach device memory.  The ranks' pieces of a row arrive apart, so the
+    gather ends in one copy of the stacked pair (``all_gather_cat``).
+    ``group=None`` is a group of one: k and v already hold every frame.
+    Returns this rank's ``[B, T_loc, C]`` of the output.
+
+    The q strip must have a block of at least 128 rows dividing it
+    (``sp_block_q``); the encoder gates on that and takes the einsum
+    route for ragged strips, and a direct caller gets the reference's
+    error, raised before the collective so that every rank raises."""
+    t_local = q.shape[1]
+    if sp_block_q(t_local, preferred=block_q) is None:
+        raise ValueError(
+            f"local shard length {t_local} has no q-block >=128 dividing it — pad T to "
+            "a multiple of 128*n_seq_shards or use the einsum attention for this shape")
+    if q.device.type == "cpu":
+        return sp_flash_attention_long_plain(q, k, v, num_heads, group)
+    if group is not None:
+        k, v = _gather_kv(k, v, group)
+    out = _attention_cuda(q, k, v, num_heads)
+    sp_flash_attention_long.launches += 1
+    return out
+
+
+sp_flash_attention_long.launches = 0
 
 
 def fused_attention(q, k, v) -> torch.Tensor:

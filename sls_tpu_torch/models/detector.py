@@ -10,11 +10,19 @@
 ``forward`` returns the reference's dict.  ``score`` computes only the
 log-probs and skips the decode, which the JAX serving step gets from
 XLA's dead-code elimination.
+
+With ``encoder.seq_axis`` set both take the ``Mesh`` and run
+sequence-parallel (``parallel/sequence.py``): the encoder returns this
+rank's rows and frames, the per-timestep SAE encodes them as they are
+(the window variants gather the frames first), sums over frames are
+all-reduced over the sequence axis, and every rank returns every row's
+``log_probs`` and the global ``sae_loss``.  ``features``, ``codes`` and
+``recon`` stay this rank's part.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +31,7 @@ from sls_tpu_torch.config import ModelConfig
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.encoder.xlsr import XLSREncoder, init_weights_
 from sls_tpu_torch.heads.classifier import MeanPoolClassifier
+from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.sae.topk import TopKSAE, reconstruction_loss
 
 
@@ -54,7 +63,20 @@ class Detector(nn.Module):
             init_weights_(self.classifier, generator)
         self.eval()
 
-    def forward(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _encode(self, wav: torch.Tensor, mesh: Optional[Mesh]
+                ) -> Tuple[torch.Tensor, Optional[SeqShard], Optional[SeqShard]]:
+        """fp32 encoder features; how the batch is cut on ``mesh`` (None
+        without ``seq_axis``); and that cut again if the features are
+        still this rank's frames, None once they are whole."""
+        shard = self.encoder.shard_for(wav, mesh)
+        feats32 = self.encoder(wav, shard=shard).float()
+        frames = shard
+        if shard is not None and self.config.use_sae and not self.sae.row_parallel:
+            feats32, frames = shard.gather_frames(feats32), None
+        return feats32, shard, frames
+
+    def forward(self, wav: torch.Tensor, mesh: Optional[Mesh] = None
+                ) -> Dict[str, torch.Tensor]:
         """Returns a dict with:
 
         log_probs  [B, 2]      log-softmax outputs (class 1 = bonafide)
@@ -66,36 +88,45 @@ class Detector(nn.Module):
         recon      [B, T, D]   SAE reconstruction (when use_sae)
         """
         cfg = self.config
-        feats32 = self.encoder(wav).float()
+        feats32, shard, frames = self._encode(wav, mesh)
         zero = torch.zeros((), dtype=torch.float32, device=feats32.device)
         out: Dict[str, torch.Tensor] = {"features": feats32}
         sae_loss = zero
         if cfg.use_sae:
             codes = self.sae.encode(feats32)
             recon = self.sae.decode(codes)
-            sae_loss = reconstruction_loss(recon, feats32)
+            if shard is None:
+                sae_loss = reconstruction_loss(recon, feats32)
+            else:  # the mean over every row and frame, from this rank's sum
+                sq = torch.square(recon - feats32).sum()
+                if frames is not None:
+                    sq = shard.sum_frames(sq)
+                sae_loss = shard.sum_rows(sq) / (shard.rows * shard.frames * feats32.shape[-1])
             out["codes"] = codes
             out["recon"] = recon
             cls_in = codes if cfg.use_sparse_features else recon
         else:
             cls_in = feats32
-        log_probs = self.classifier(cls_in)
+        log_probs = self.classifier(cls_in, frames)
+        if shard is not None:
+            log_probs = shard.gather_rows(log_probs)
         out["log_probs"] = log_probs
         out["score"] = torch.exp(log_probs[:, 1])
         out["sae_loss"] = sae_loss
         out["cpc_loss"] = zero
         return out
 
-    def score(self, wav: torch.Tensor) -> torch.Tensor:
+    def score(self, wav: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """log_probs [B, 2] only, with no decode when the head reads the
         sparse codes (the serving path)."""
         cfg = self.config
-        feats32 = self.encoder(wav).float()
-        if not cfg.use_sae:
-            return self.classifier(feats32)
-        codes = self.sae.encode(feats32)
-        cls_in = codes if cfg.use_sparse_features else self.sae.decode(codes)
-        return self.classifier(cls_in)
+        feats32, shard, frames = self._encode(wav, mesh)
+        cls_in = feats32
+        if cfg.use_sae:
+            codes = self.sae.encode(feats32)
+            cls_in = codes if cfg.use_sparse_features else self.sae.decode(codes)
+        log_probs = self.classifier(cls_in, frames)
+        return log_probs if shard is None else shard.gather_rows(log_probs)
 
 
 def total_loss(cls_loss, sae_loss, sae_weight: float, cpc_loss=None,

@@ -12,6 +12,10 @@ routes it through its Pallas kernels: the fused bf16 encode + top-k for
 ``window_overlap`` with an even window, the fp32 encode then the plain
 rule otherwise, and the fp32 decode.  Without it the plain matmuls run
 in ``dtype``, as the JAX package's XLA path does.
+
+Under sequence parallelism (``parallel/sequence.py``) the per-timestep
+variant works on any rank's frames as they are (``row_parallel``); the
+window variants reduce over frames and need them whole.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ class TopKSAE(nn.Module):
         self.W_enc = nn.Parameter(torch.empty(D, M, device=device))
         self.b_enc = nn.Parameter(torch.zeros(M, device=device))
         self.b_dec = nn.Parameter(torch.zeros(D, device=device))
+
+    @property
+    def row_parallel(self) -> bool:
+        """Each frame's codes depend on that frame alone."""
+        return self.config.variant == "per_timestep"
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -1,6 +1,6 @@
 """Score-file production, counterpart of ``Trainer.produce_scores`` in
-``sls_tpu/train/loop.py``.  The Trainer, checkpoints and multi-host
-scoring are not ported yet (ROADMAP)."""
+``sls_tpu/train/loop.py``.  The Trainer and checkpoints are not ported
+yet (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Callable, Union
 
 import numpy as np
 
+from sls_tpu_torch.parallel import distributed as dist
 from sls_tpu_torch.scores.writer import ScoreWriter, log_probs_to_scores
 
 
@@ -16,11 +17,16 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> i
     """Write the ``utt score`` file for every valid row the loader yields;
     returns the number of lines written.
 
+    Multi-process: each process scores its own shard of the set
+    (``ArrayLoader.host_shard``) on its own device and writes a part
+    file; the primary concatenates the parts in process order, and every
+    process returns the global count.  Every process must make the call.
+
     Depth-2 pipeline: batch N is fetched from the device (and written)
     only after batches N+1 and N+2 are queued, so host batching, device
     compute and score writing overlap."""
     n = 0
-    with ScoreWriter(out_path) as writer:
+    with ScoreWriter(dist.part_path(out_path)) as writer:
         pending = []
 
         def flush(item) -> None:
@@ -37,4 +43,5 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> i
                 flush(pending.pop(0))
         for item in pending:
             flush(item)
-    return n
+    dist.merge_part_files(out_path)
+    return int(dist.allreduce_sum_scalars([float(n)])[0])

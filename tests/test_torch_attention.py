@@ -184,8 +184,7 @@ def test_encoder_configs_that_no_longer_raise():
     XLSREncoder(tcfg.tiny_xlsr_config(fused_frontend=True), device="cpu")
     XLSREncoder(tcfg.tiny_xlsr_config(int8_serving=True, int8_scope="all"), device="cpu")
     for name, value in (("seq_axis", "seq"), ("grouped_conv_einsum", True)):
-        with pytest.raises(NotImplementedError, match=name):
-            XLSREncoder(tcfg.tiny_xlsr_config(**{name: value}), device="cpu")
+        XLSREncoder(tcfg.tiny_xlsr_config(**{name: value}), device="cpu")
 
 
 def _length(t_frames):

@@ -44,6 +44,7 @@ def shared(request, wav):
              for k, v in detector_state_from_flax({"encoder": params}).items()}
     return {
         "topology": request.param,
+        "params": params,
         "state": state,
         "ref32": np.asarray(out32),
         "hidden32": [np.asarray(h) for h in hidden],
@@ -90,3 +91,25 @@ def test_encoder_bf16_within_reference_envelope(shared, wav):
     assert 0 < envelope < 0.05
     assert _rel(out16, ref32) <= 1.5 * envelope
     assert _rel(out16, ref16) <= 2.0 * envelope
+
+
+def test_grouped_conv_einsum_matches_conv_path_and_jax(shared, wav):
+    """The pos-conv as per-tap block-diagonal einsums on the conv's own
+    weight: the same state dict loads, and the output agrees with the
+    port's conv path and with the JAX encoder's einsum path."""
+    mode, lnf = shared["topology"]
+    kw = dict(extractor_mode=mode, layer_norm_first=lnf)
+    enc = TorchXLSREncoder(torch_tiny_config(grouped_conv_einsum=True, **kw), device="cpu")
+    enc.load_state_dict(shared["state"], strict=True)
+    conv_path = _port(shared, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 37, 64)).astype(np.float32))
+    with torch.inference_mode():
+        out = enc(torch.from_numpy(wav)).numpy()
+        # the pos-conv alone: 16 taps of fp32 sums in another order
+        np.testing.assert_allclose(enc.pos_conv(x).numpy(), conv_path.pos_conv(x).numpy(),
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out, conv_path(torch.from_numpy(wav)).numpy(),
+                                   atol=1e-4, rtol=0)
+    ref = XLSREncoder(tiny_xlsr_config(grouped_conv_einsum=True, **kw)).apply(
+        {"params": shared["params"]}, jnp.asarray(wav))
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4, rtol=0)

@@ -17,6 +17,11 @@ PORT_FILES = sorted((ROOT / "sls_tpu_torch").rglob("*.py")) + [ROOT / "chip_smok
 LONG_CLIP_MODULES = ("sls_tpu_torch.kernels.attention", "sls_tpu_torch.evaluation.overlap",
                      "sls_tpu_torch.metrics.eer", "sls_tpu_torch.analysis.temporal")
 
+# the multi-process slice's modules
+PARALLEL_MODULES = ("sls_tpu_torch.parallel.distributed", "sls_tpu_torch.parallel.mesh",
+                    "sls_tpu_torch.parallel.sequence", "sls_tpu_torch.parallel.launch",
+                    "sls_tpu_torch.parallel.workers")
+
 _BLOCKED_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu)\b(?!_torch)", re.M)
 _REFERENCE_NAME = re.compile(r"\bsls_tpu\.")
 
@@ -38,14 +43,16 @@ def test_every_module_imports_with_jax_blocked():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 24
+    assert len(names) >= 30
     assert set(LONG_CLIP_MODULES) <= names
+    assert set(PARALLEL_MODULES) <= names
 
 
 def test_long_clip_modules_are_checked():
     checked = {str(p.relative_to(ROOT)).removesuffix(".py").replace("/", ".")
                for p in PORT_FILES}
     assert set(LONG_CLIP_MODULES) <= checked
+    assert set(PARALLEL_MODULES) <= checked
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -207,11 +207,26 @@ def test_unwindowed_exact_bucket_equals_direct_forward(params):
 
 
 def test_unwindowed_sequence_parallel_not_ported(params):
+    """Sequence-parallel scoring is ported (tests/test_torch_sequence_parallel.py
+    holds it to the reference); what still raises is a model built without
+    ``sp_model_config``, with the reference's error.  A one-rank mesh
+    scores as the unsharded program does."""
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.parallel.sequence import sp_mesh, sp_model_config
+
     _, port = _pair(params)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        next(tov.score_utterances_unwindowed(port, [("u", np.ones(10, np.float32))],
-                                             port.config.encoder, sp_mesh=object(),
-                                             device="cpu"))
+    clips = [("u", np.random.default_rng(9).normal(0, 0.1, 900).astype(np.float32))]
+    with pytest.raises(ValueError, match="build the config with sp_model_config"):
+        next(tov.score_utterances_unwindowed(port, clips, port.config.encoder,
+                                             sp_mesh=sp_mesh(1), device="cpu"))
+    sp_port = Detector(sp_model_config(port.config), device="cpu")
+    sp_port.load_state_dict(port.state_dict())
+    ((_, ref, t_ref),) = tov.score_utterances_unwindowed(
+        port, clips, port.config.encoder, t_targets=(64,), device="cpu")
+    ((_, got, t_got),) = tov.score_utterances_unwindowed(
+        sp_port, clips, port.config.encoder, t_targets=(64,), sp_mesh=sp_mesh(1),
+        device="cpu")
+    assert (got, t_got) == (ref, t_ref)
 
 
 @pytest.fixture(scope="module")
