@@ -14,7 +14,10 @@ Phases:
      beside its plain version, a PyTorch library call computing the same
      function where there is one (a yardstick only; the port never calls
      it) and its bound; the front-end tail also beside the unfused route
-     it replaces;
+     it replaces; the attention rows also with the form the kernel took,
+     its floor of exponentials, the long form against its emulation, and
+     the kernel's and SDPA's times replayed from a CUDA graph (device
+     time without the host's launch cost);
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -93,6 +96,9 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# exponentials a second on the special-function units of an H100 SXM
+# (FlashAttention-3, Shah et al. 2024): the attention kernel's second floor
+PEAK_EXP = 3.9e12
 
 ENCODE_TOL = 1e-3      # same bf16 operands, fp32 sums over D=1024 in another order
 ENCODE_F32_TOL = 1e-4  # fp32 operands, fp32 sums over D=1024 in another order
@@ -151,7 +157,9 @@ def path_kernels(layers: int) -> dict:
 # the hand-written kernels' names as the profiler shows them
 OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
                "window_mask_kernel", "frame_vote_kernel", "decode_kernel",
-               "attention_bf16_kernel", "frontend_ln0_kernel", "frontend_conv_bf16_kernel")
+               "attention_short_kernel", "attention_long_kernel", "frontend_ln0_kernel",
+               "frontend_conv_bf16_kernel")
+ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
@@ -196,6 +204,30 @@ def timed(torch, fn, device, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_timed(torch, fn, device, iters: int):
+    """Mean milliseconds per call of ``fn`` replayed from one CUDA graph of
+    ``iters`` calls: the device's time without the host's cost of a launch,
+    which at the T 201 attention shape is of the kernel's order.  None off
+    the card."""
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def sync(torch, device) -> None:
@@ -379,8 +411,10 @@ def bf16_ulps_exceeded(torch, out, ref) -> int:
 
 
 def phase_attention(torch, ta, device, long_shape, short_shape, iters):
-    """Kernels 6, 7, 9 and 10 (one CUDA kernel behind four wrappers)
-    against their plain versions at the main paths' shapes, bf16: row 6 at
+    """Kernels 6, 7, 9 and 10 (one CUDA source behind four wrappers, in
+    the form its Tkv picks) against their plain versions at the main
+    paths' shapes, bf16, and the long form also against its CPU-side
+    emulation (``attention_online_emulated``, run here on the card): row 6 at
     the long-T bucket [B, T, C] (also at T / 2 and at Tq = T / 4 against
     Tkv = T); row 7 in one process (a group of one: k and v given whole)
     on a rank's q strip at every shape phase 10 gives it (a strip of four
@@ -412,24 +446,38 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
         q, k = args[0], args[1]
         b, tq = q.shape[0], q.shape[1]
         tkv, c = k.shape[1], k.shape[-1] * (k.shape[-2] if k.dim() == 4 else 1)
+        flat = [x.reshape(x.shape[0], x.shape[1], -1) for x in args[:3]]
+        form = ta.attention_form(tkv)
+        emu = {}
+        if form == "long":
+            emulated = ta.attention_online_emulated(*flat, heads).reshape(out.shape)
+            emu = {"emulation_max_abs_err": float((out.float() - emulated.float()).abs().max()),
+                   "elements_beyond_one_bf16_ulp_vs_emulation":
+                       bf16_ulps_exceeded(torch, out, emulated)}
+            check(emu["emulation_max_abs_err"] <= tol, f"{name} agrees with its emulation")
+            del emulated
         ops = 4.0 * b * tq * tkv * c  # q k^T and p v, 2 ops a multiply-add
         bytes_ = 2.0 * (2 * b * tq * c + 2 * b * tkv * c)  # q, k, v read, o written
         bound_ms, by = bound(bytes_, ops, PEAK_BF16_FLOPS)
-        flat = [x.reshape(x.shape[0], x.shape[1], -1) for x in args[:3]]
+        exps = float(b * heads * tq * tkv)  # one exponential a score
         row = {
             "name": name, "route": "cuda", "source": "sls_tpu_torch/kernels/csrc/attention.cu",
-            "replaces": replaces, "max_abs_err": err, "tolerance": tol,
-            "elements_beyond_one_bf16_ulp": ulps, "elements": out.numel(),
+            "replaces": replaces, "form": form, "max_abs_err": err, "tolerance": tol,
+            "elements_beyond_one_bf16_ulp": ulps, "elements": out.numel(), **emu,
             "shape": {"B": b, "Tq": tq, "Tkv": tkv, "C": c, "heads": heads},
             "ms": timed(torch, lambda: wrapper(*args), device, iters),
             "plain_ms": timed(torch, lambda: plain(*args), device, max(iters // 4, 1)),
             "library_ms": timed(torch, lambda: sdpa(*flat, heads), device, iters),
+            "device_ms": graph_timed(torch, lambda: wrapper(*args), device, iters),
+            "library_device_ms": graph_timed(torch, lambda: sdpa(*flat, heads), device, iters),
             "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
+            "exponentials": exps, "exp_floor_ms": exps / PEAK_EXP * 1e3,
         }
-        log(f"{name} {row['shape']}: max_abs_err {err:.3e} (tolerance {tol:.3e}), "
-            f"{ulps} of {out.numel()} elements beyond one bf16 ulp; {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({by})")
+        log(f"{name} {row['shape']} ({form} form): max_abs_err {err:.3e} (tolerance {tol:.3e}), "
+            f"{ulps} of {out.numel()} elements beyond one bf16 ulp; {json.dumps(emu)}; "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} "
+            f"ms; from a CUDA graph {row['device_ms']} ms, SDPA {row['library_device_ms']} ms; "
+            f"bound {bound_ms:.4f} ms ({by}), exponentials floor {row['exp_floor_ms']:.4f} ms")
         return row
 
     b, t, c, h = long_shape
@@ -439,9 +487,12 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
                          inputs(*[(b, tq, c)] + [(b, tkv, c)] * 2), h,
                          "sls_tpu/kernels/flash_attention.py:52")
                  for tq, tkv in ((t, t), (t // 2, t // 2), (t // 4, t))]
-    case_keys = ("shape", "max_abs_err", "tolerance", "elements_beyond_one_bf16_ulp", "ms",
-                 "plain_ms", "library_ms", "bound_ms", "bound_by")
-    row6 = dict(long_rows[0], cases=[{key: r[key] for key in case_keys} for r in long_rows])
+    case_keys = ("shape", "form", "max_abs_err", "tolerance", "elements_beyond_one_bf16_ulp",
+                 "emulation_max_abs_err", "elements_beyond_one_bf16_ulp_vs_emulation", "ms",
+                 "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",
+                 "bound_by", "exp_floor_ms")
+    row6 = dict(long_rows[0], cases=[{key: r[key] for key in case_keys if key in r}
+                                     for r in long_rows])
 
     sp_rows = [measure("sp_flash_attention_long",
                        lambda q, k, v: ta.sp_flash_attention_long(q, k, v, h),
@@ -452,7 +503,8 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
                # clip at T (one row a data coordinate)
                for tkv, n_seq in ((t, SP_MESHES[0][0]), (t // 2, SP_MESHES[0][0]),
                                   (t, SP_MESHES[1][0]))]
-    row7 = dict(sp_rows[0], cases=[{key: r[key] for key in case_keys} for r in sp_rows])
+    row7 = dict(sp_rows[0], cases=[{key: r[key] for key in case_keys if key in r}
+                                   for r in sp_rows])
     # rows are independent and the K/V tile order does not depend on Tq,
     # so a rank's strip should be bit-equal to its rows of the full output
     q, k, v = inputs((b, t, c), (b, t, c), (b, t, c))
@@ -653,7 +705,7 @@ def sp_profile_job(job, model, mesh, device) -> dict:
     prof = device_time_by_kernel(lambda: fwd(wav), int(job["iters"]), top=12)
     by_name = prof.pop("by_name_ms")
     for label, parts in (("collectives_ms_per_step", ("nccl", "gloo")),
-                         ("attention_kernel_ms_per_step", ("attention_bf16_kernel",))):
+                         ("attention_kernel_ms_per_step", ATTN_KERNEL_NAMES)):
         prof[label] = sum(ms for name, ms in by_name.items()
                           if any(part in name.lower() for part in parts))
     return {"profile": prof}
@@ -1276,7 +1328,9 @@ def main(argv=None) -> int:
     kernels = [{key: row[key] for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
         "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tolerance",
-        "elements_beyond_one_bf16_ulp", "cases", "unfused_route_ms", "rel_l2_vs_plain",
+        "elements_beyond_one_bf16_ulp", "form", "device_ms", "library_device_ms",
+        "exp_floor_ms", "emulation_max_abs_err",
+        "elements_beyond_one_bf16_ulp_vs_emulation", "cases", "unfused_route_ms", "rel_l2_vs_plain",
         "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal") if key in row}
         for row in rows]
     batch_paths = [label for label in results if "eval_utts_per_s" in results[label]]

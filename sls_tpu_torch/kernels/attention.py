@@ -21,12 +21,19 @@ contracts:
   ``[B, T, C]``, which no path calls (the reference's tests do).
 
 q comes pre-scaled by Dh^-0.5.  The CUDA kernel takes bf16 or fp32 at
-Dh 64 and its own q tiles (128 rows), so ``block_q`` and ``h_blk`` only
-keep the reference's checks.  Each wrapper takes its plain PyTorch
-version (``*_plain``, beside it) for a tensor on the CPU, and launches
-the kernel for a CUDA tensor or raises; there is no fallback.
-``<wrapper>.launches`` counts kernel launches.  ``attention_reference``
-and ``sp_block_q`` are own copies of the reference's helpers.
+Dh 64 and its own q tiles (64 rows a warpgroup), so ``block_q`` and
+``h_blk`` only keep the reference's checks.  In bf16 it has two forms,
+chosen by Tkv (``attention_form``): at Tkv <= ``SHORT_KV`` the whole
+score strip of a q tile sits in registers and p is rounded to bf16 where
+the reference rounds it; above, one pass over ``BLOCK_KV``-key tiles with
+an online softmax rounds the unnormalised p~ instead, which
+``attention_online_emulated`` repeats in plain PyTorch (no path calls
+it; the tests and ``chip_smoke.py`` hold the kernel to it).  Each
+wrapper takes its plain PyTorch version (``*_plain``, beside it) for a
+tensor on the CPU, and launches the kernel for a CUDA tensor or raises;
+there is no fallback.  ``<wrapper>.launches`` counts kernel launches.
+``attention_reference`` and ``sp_block_q`` are own copies of the
+reference's helpers.
 """
 
 from __future__ import annotations
@@ -42,6 +49,13 @@ from sls_tpu_torch.parallel.distributed import all_gather_cat
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIM = 64  # the head dim the CUDA kernel takes (XLS-R's)
+SHORT_KV = 256  # bf16 keys at or below: the kernel's whole-strip form
+BLOCK_KV = 128  # the long form's keys a tile
+
+
+def attention_form(t_kv: int) -> str:
+    """The form the bf16 kernel takes for ``t_kv`` keys."""
+    return "short" if t_kv <= SHORT_KV else "long"
 
 
 # -- plain versions ---------------------------------------------------------
@@ -97,6 +111,38 @@ def fused_attention_heads_plain(q, k, v, num_heads: int) -> torch.Tensor:
     return _attention_plain(q, k, v, num_heads)
 
 
+def attention_online_emulated(q, k, v, num_heads: int, block_kv: int = BLOCK_KV,
+                              short_kv: int = SHORT_KV) -> torch.Tensor:
+    """The bf16 kernel's numerics in plain PyTorch, rounding where it
+    rounds.  At Tkv <= ``short_kv`` that is the plain version.  Above, it
+    is one pass over ``block_kv``-key tiles in order: per row a running max
+    m and sum l in fp32, p~ = exp(s - m) rounded to v's dtype for the
+    product with v, the fp32 sum o rescaled by exp(m_old - m_new) as the
+    max moves, and o / l at the end, cast to q's dtype."""
+    B, Tq, C = q.shape
+    Tkv = k.shape[1]
+    if Tkv <= short_kv:
+        return _attention_plain(q, k, v, num_heads)
+    dh = C // num_heads
+
+    def heads(x, t):
+        return x.float().reshape(B, t, num_heads, dh).transpose(1, 2)
+
+    qh, kh, vh = heads(q, Tq), heads(k, Tkv), heads(v, Tkv)
+    m = torch.full((B, num_heads, Tq, 1), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, num_heads, Tq, dh, device=q.device)
+    for j in range(0, Tkv, block_kv):
+        s = qh @ kh[:, :, j:j + block_kv].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(v.dtype).float() @ vh[:, :, j:j + block_kv]
+        m = m_new
+    return (o / l).transpose(1, 2).reshape(B, Tq, C).to(q.dtype)
+
+
 def attention_reference(q, k, v, num_heads: int) -> torch.Tensor:
     """The reference's einsum attention with the [B, T, C] contract: the
     scores in the operands' dtype, then an fp32 softmax."""
@@ -125,44 +171,68 @@ def sp_block_q(t_local: int, preferred: int = 256, minimum: int = 128) -> Option
 
 
 def _attention_cuda(q, k, v, num_heads: int) -> torch.Tensor:
-    """Launch ``csrc/attention.cu`` on q [B, Tq, C], k and v [B, Tkv, C]."""
+    """Launch ``csrc/attention.cu`` on q [B, Tq, C], k and v [B, Tkv, C],
+    or on the same memory as [B, T, H, Dh] (``fused_attention`` passes it
+    without views); the output takes q's shape.  The checks read each
+    attribute once: at the T 201 shape the host's share of a call is of
+    the kernel's order."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+    qs, ks = q.shape, k.shape
+    if len(qs) not in (3, 4) or len(ks) != len(qs) or v.dim() != len(qs):
         raise ValueError("q, k and v must be [B, T, C]")
-    B, Tq, C = q.shape
-    Tkv = k.shape[1]
-    if tuple(k.shape) != (B, Tkv, C) or tuple(v.shape) != (B, Tkv, C):
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
-                         f"q {tuple(q.shape)}")
+    B, Tq, Tkv = qs[0], qs[1], ks[1]
+    if ks[0] != B or ks[2:] != qs[2:] or v.shape != ks:
+        raise ValueError(f"k {tuple(ks)} and v {tuple(v.shape)} do not match "
+                         f"q {tuple(qs)}")
+    C = qs[2] * qs[3] if len(qs) == 4 else qs[2]
     if C != num_heads * HEAD_DIM:
         raise ValueError(f"the kernel takes head dim {HEAD_DIM}; got C={C} over "
                          f"{num_heads} heads")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
+    dtype, device = q.dtype, q.device
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernel takes bfloat16 or float32, got {dtype}")
+    ptrs = []
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, expected {q.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        ptrs.append(t.data_ptr())
+        if ptrs[-1] % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or Tq == 0:
         return out
     if Tkv == 0:
         raise ValueError("attention over no keys")
-    fn = getattr(build.load("attention"), "attention_launch")
-    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tkv,
-                 num_heads, int(q.dtype == torch.bfloat16), stream)
+    args = (*ptrs, out.data_ptr(), B, Tq, Tkv, num_heads, int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = _launcher()(*args)
+    else:  # the kernel launches on the current device
+        with torch.cuda.device(device):
+            err = _launcher()(*args)
     build.check(err, "attention")
     return out
+
+
+def _launcher():
+    """``attention_launch`` of the built library, typed once a process
+    (the short form's kernel takes about 0.05 ms, so the host's share of
+    a call matters)."""
+    fn = _launcher.fn
+    if fn is None:
+        fn = build.load("attention").attention_launch
+        fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        fn.restype = ctypes.c_int
+        _launcher.fn = fn
+    return fn
+
+
+_launcher.fn = None
 
 
 # -- wrappers ---------------------------------------------------------------
@@ -229,14 +299,13 @@ def fused_attention(q, k, v) -> torch.Tensor:
         raise ValueError(f"fused_attention takes [B, T, H, Dh], got {tuple(q.shape)}")
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v)
-    B, T, H, Dh = q.shape
+    shape = q.shape
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if tuple(t.shape) != (B, T, H, Dh) or not t.is_contiguous():
+        if t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B, T, H, Dh] like q")
-    out = _attention_cuda(q.view(B, T, H * Dh), k.view(B, T, H * Dh),
-                          v.view(B, T, H * Dh), H)
+    out = _attention_cuda(q, k, v, shape[2])  # [B, T, H, Dh] is [B, T, H*Dh] in memory
     fused_attention.launches += 1
-    return out.view(B, T, H, Dh)
+    return out
 
 
 fused_attention.launches = 0

@@ -1,11 +1,12 @@
-// Attention softmax(q k^T) v per head for Hopper (sm_90a): one kernel
-// behind three entries.
+// Attention softmax(q k^T) v per head for Hopper (sm_90a): wgmma, TMA and
+// mbarriers, one C entry behind four wrappers.
 //
 // Replaces three TPU kernels that compute the same function with other
 // layouts and grids:
 //   sls_tpu/kernels/flash_attention.py::flash_attention_long (lines 52-109;
-//     kernel body _flash_kernel, 34-46): one 256-row q block against the
-//     whole K/V strip of its (batch, head) held in VMEM;
+//     kernel body _flash_kernel, 34-46), also under sp_flash_attention_long
+//     (123-174): one 256-row q block against the whole K/V strip of its
+//     (batch, head) held in VMEM;
 //   sls_tpu/kernels/attention.py::fused_attention (117-152; _attn_kernel,
 //     105-113): one grid cell per (batch, head), the whole T;
 //   sls_tpu/kernels/attention.py::fused_attention_heads (56-102;
@@ -24,36 +25,59 @@
 // What bounds it on the H100: at the long-T bucket (B 1, T 5120, H 16,
 // Dh 64) the function is 4*B*T^2*C = 107 GFLOP of bf16 products against
 // 42 MB of q, k, v and o, so the operations bound it (0.109 ms at the
-// 989 TFLOP/s data-sheet peak).  At the short-T flagship shape
+// 989 TFLOP/s data-sheet peak); its 16*5120^2 = 419 M exponentials on the
+// special-function units (about 3.9 T/s) take about as long again unless
+// they overlap the products.  At the short-T flagship shape
 // [36, 201, 16, 64] it is 5.96 GFLOP against 59 MB: bytes (0.018 ms).
 //
-// Design.  The TPU kernel's whole-strip softmax cannot be repeated: at
-// T = 5120 the fp32 score strip of even 64 queries is 1.3 MB and a
-// Hopper block gets at most 227 KB of shared memory.  So K and V stream
-// through shared memory in 64-key tiles (cp.async, two buffers: the next
-// tile loads while the current one is multiplied), and the softmax takes
-// two passes over them, which keeps the reference's rounding point:
-//   pass 1: s = q k^T on the tensor cores, each thread's running row max
-//           and sum of exp, merged over the four threads of a row at the
-//           end;
-//   pass 2: s again (the same products in the same order, so the same
-//           bits), p = exp(s - max) / sum, p rounded to bf16 straight from
-//           the score fragments into A fragments, and o += p v.
-// A one-pass online softmax would round the unnormalised p instead,
-// which at bf16 is another function; the second pass costs 1.5x the
-// function's operations.  The exponentials are ex2.approx of s*log2(e)
-// less max*log2(e) (one FFMA and one MUFU op a score) and p is scaled by
-// 1/sum: both are within a few fp32 ulps of exp(s - max) / sum, far
-// below the bf16 rounding of p that follows.  Grid: one block per
-// (128-query tile, head, batch); 8 warps, each owning 16 query rows,
-// mma.sync m16n8k16 bf16 with fp32 accumulators (the fragment code of
-// sae_encode_topk.cu).
-// Keys past Tkv are masked to -inf and their rows zero-filled; query
-// rows past Tq are computed on zeros and not written (ragged T = 201).
-// fp32 operands (the reference's fp32 tests) take a SIMT kernel: one
-// query row a thread, K/V tiles broadcast from shared memory.  wgmma,
-// TMA and a warp-specialised pipeline are later work.
+// Design.  Every bf16 operand arrives by TMA (a 3-D map {C, T, B} per
+// tensor, box {64, rows, 1}: a box that runs past T is zero-filled rather
+// than reading the next batch's rows) into shared memory with the 128-byte
+// swizzle, one 128-byte row per key or query, and both products run on
+// wgmma: s = q k^T with both operands in shared memory (K-major), and
+// o += p v with p in registers (the fp32 score fragment converts to the
+// A fragment in place) and v in shared memory (MN-major, the transpose
+// bit).  Each consumer warpgroup owns 64 query rows.  Two forms, chosen
+// by Tkv:
+//
+//   short (Tkv <= 256; the T 201 flagship): the TPU kernel's own design,
+//     which fits on chip here.  One TMA load brings the whole of a
+//     (b, h)'s K and V, Tkv padded to a multiple of 16 (208 for 201); the
+//     warpgroup computes its whole 64 x Tkv score strip into registers,
+//     takes the exact row max and sum, forms p = exp(s - max) * (1/sum),
+//     rounds it to bf16 and runs p . v.  One exponential a score, one read
+//     of every operand, and the reference's rounding point exactly.
+//   long (Tkv > 256): one pass over K and V with an online softmax.  A
+//     producer warp keeps a ring of 128-key K and V tiles filled by TMA
+//     (full / empty mbarriers per stage); consumers run s = q k^T, keep a
+//     running max m and sum l in fp32, form p~ = exp(s - m) rounded to
+//     bf16 for p~ . v, rescale o by exp(m_old - m_new), and divide o by l
+//     at the end.  Each warpgroup issues tile j's q k^T together with
+//     tile j-1's p v, so its exponentials of tile j overlap its own p v;
+//     with two consumer warpgroups a block they take turns at issuing
+//     (named barriers), so one's exponentials overlap the other's
+//     products, and setmaxnreg gives the consumers the producer's
+//     registers.  Rounding point: this rounds the unnormalised p~ rather
+//     than p = p~ / l.  Both are one bf16 rounding of the same real value
+//     times a row constant, so the relative error bound is the same 2^-9
+//     an element; kernels/attention.py::attention_online_emulated repeats
+//     these roundings on the CPU.  A row's result depends on its q row
+//     and on K and V alone, in a fixed tile order: not on Tq or on the
+//     block's q tile, so a sequence-parallel strip is bit-equal to its
+//     rows of the whole-sequence output.  A block holds 128 query rows at
+//     every shape: a 64-row block (one consumer warpgroup, two blocks an
+//     SM) leaves 128 registers a thread to share out, too few for the
+//     wgmma pipeline, and measured slower even on the 640- and 1280-row
+//     strips, which fill the card worst.
+//
+// Keys past Tkv are -inf whatever TMA's zero fill put there; query rows
+// past Tq are computed on zeros and not written.  The exponentials are
+// ex2.approx of s*log2(e) less max*log2(e): within a few fp32 ulps of
+// exp(s - max), far below the bf16 rounding of p that follows.
+// fp32 operands (the reference's fp32 tests; no path) take a SIMT kernel:
+// one query row a thread, K/V tiles broadcast from shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,46 +87,141 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int DH = 64;               // head dim the kernels take
-constexpr int BQ = 128;              // query rows per block (bf16)
-constexpr int BKV = 64;              // keys per shared-memory tile
-constexpr int LD = DH + 8;           // padded bf16 row: conflict-free ldmatrix
-constexpr int THREADS = 256;         // 8 warps x 16 query rows
-constexpr int TILE = BKV * LD;       // elements of one K or V tile
-static_assert(BQ * LD <= 2 * TILE, "the q tile is staged in the two K buffers");
+constexpr int DH = 64;                      // head dim the kernels take
+constexpr int ROW_BYTES = DH * 2;           // one bf16 row: one 128-byte swizzle row
+constexpr int QT = 64;                      // query rows per consumer warpgroup
+constexpr int KT = 128;                     // keys per ring tile (long form)
+constexpr int SHORT_KV = 256;               // Tkv at or below: the short form
+constexpr int Q_BYTES = QT * ROW_BYTES;     // 8 KB
+constexpr int KV_BYTES = KT * ROW_BYTES;    // 16 KB
+constexpr int ALIGN = 1024;                 // the 128-byte swizzle's repeat
+constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int F32_BQ = 64;           // fp32: query rows per block, one a thread
 constexpr int F32_BKV = 32;          // fp32: keys per shared-memory tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((ALIGN - (a & (ALIGN - 1))) & (ALIGN - 1));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// -- mbarriers and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the barrier's phase of this parity has completed; a wait of
+// more than about ten seconds traps, so that a fault shows as a launch
+// error rather than as a card that never finishes
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) break;
+    if (clock64() - t0 > 20000000000ll) __trap();
+  }
+}
+
+// one box of a 3-D tensor map {C, T, B} at (c, t, b) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c), "r"(t), "r"(b)
+      : "memory");
+}
+
+// -- warpgroups ---------------------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// keep the compiler from moving reads or writes of wgmma's registers
+// across the issue and the wait
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (all >> 4), layout type 1 in bits 62-63
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A or B K-major (q, k): rows of 128 bytes, 8-row groups 1024 bytes apart;
+// k-step kk of 16 elements starts 32 bytes further in the row
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + 32 * kk, 0, 1024);
+}
+
+// B MN-major (v as [key][dh]): k-step kk of 16 keys starts 16 rows further;
+// the 64 dh columns are one 128-byte row, 8-key groups 1024 bytes apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + 16 * ROW_BYTES * kk, 1024, 1024);
 }
 
 // 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0)
@@ -112,214 +231,386 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // two bf16 values packed low-first, as a 32-bit word
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + R) of one head's [T, DH] slab (row stride C) into a
-// padded shared tile [R][LD]; rows at or past n_rows are zero-filled
-template <int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0,
-                                          int n_rows, int C, int tid) {
-  constexpr int CHUNKS = R * (DH / 8);  // 16-byte chunks
-  static_assert(CHUNKS % THREADS == 0, "whole chunks per thread");
-#pragma unroll
-  for (int j = 0; j < CHUNKS / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool valid = row0 + r < n_rows;
-    const bf16* g = src + (size_t)(valid ? row0 + r : 0) * C + c;
-    cp_async16(dst + r * LD + c, g, valid);
-  }
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// s = q k^T for this warp's 16 rows against a 64-key tile: 8 fragments of
-// 16x8; keys at or past n_keys (counted from the tile's first) are -inf
-__device__ __forceinline__ void tile_scores(float (&s)[8][4], uint32_t (&qf)[4][4],
-                                            const bf16* kt, int lane, int n_keys) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      // B fragments of key tiles 2jp and 2jp+1: matrices (keys, dh) at
-      // (+0, +0), (+0, +8), (+8, +0), (+8, +8)
-      uint32_t bk[4];
-      const int key = jp * 16 + (lane >> 4) * 8 + (lane & 7);
-      const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(bk, smem_addr(&kt[key * LD + col]));
-      mma_16816(s[2 * jp], qf[kk], bk);
-      mma_16816(s[2 * jp + 1], qf[kk], bk + 2);
-    }
-  }
-  if (n_keys < BKV) {
-    const int t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (j * 8 + 2 * t + (c & 1) >= n_keys) s[j][c] = -INFINITY;
-  }
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int Tq, int Tkv, int C) {
-  __shared__ __align__(16) bf16 smem[4 * TILE];
-  bf16* k_buf = smem;             // two K tiles
-  bf16* v_buf = smem + 2 * TILE;  // two V tiles
+// The accumulator fragment of m64nN: thread (warp w, lane g*4 + t) holds,
+// for each 8-column group j, rows 16w + g (d[4j], d[4j+1]) and 16w + g + 8
+// (d[4j+2], d[4j+3]) at columns 8j + 2t, 8j + 2t + 1.  The A fragment of
+// a 16-deep k-step kk is the same thread's d[8kk..8kk+7], packed in pairs.
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const size_t head = (size_t)blockIdx.y * DH;
-  const size_t b = blockIdx.z;
-  const bf16* qg = q + b * Tq * C + head;
-  const bf16* kg = k + b * Tkv * C + head;
-  const bf16* vg = v + b * Tkv * C + head;
+// -- wgmma -------------------------------------------------------------------
 
-  // the q tile, staged in the K buffers, into A fragments held all along
-  load_rows<BQ>(smem, qg, q0, Tq, C, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldmatrix_x4(qf[kk], smem_addr(&smem[(warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                        (lane >> 4) * 8]));
-  __syncthreads();
+// d[0..64) += A (smem, K-major) . B (smem, K-major), m64n128k16 bf16 -> fp32
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+          "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+          "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+          "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-  const int n_tiles = (Tkv + BKV - 1) / BKV;
-  float s[8][4];
+// d[0..8) += A (smem, K-major) . B (smem, K-major), m64n16k16 bf16 -> fp32
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-  // pass 1: this thread's running max and sum of exp for rows g (r = 0)
-  // and g + 8 (r = 1), over its two columns of every 8-key fragment
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  load_rows<BKV>(k_buf, kg, 0, Tkv, C, tid);
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      load_rows<BKV>(k_buf + ((it + 1) & 1) * TILE, kg, (it + 1) * BKV, Tkv, C, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tile_scores(s, qf, k_buf + (it & 1) * TILE, lane, Tkv - it * BKV);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      if (mx != -INFINITY) {  // else every key this thread has seen is masked
-        const float mx2 = mx * LOG2E;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          sum += ex2(fmaf(s[j][2 * r], LOG2E, -mx2)) + ex2(fmaf(s[j][2 * r + 1], LOG2E, -mx2));
-        l[r] = l[r] * ex2((m[r] - mx) * LOG2E) + sum;
-        m[r] = mx;
-      }
-    }
-    __syncthreads();  // the buffer is free before the next prefetch lands in it
-  }
-  // merge the four threads (t = 0..3) that share each row
+// d[0..32) += A (registers) . B (smem, MN-major: the transpose bit), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+          "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34,"
+          "%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// o = fragment rows (16w + g, 16w + g + 8) scaled and written to out
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float* o,
+                                           const float* scale, int row, int Tq, size_t col0,
+                                           int C, int tq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float mr = m[r];
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
-    float lr = m[r] == -INFINITY ? 0.f : l[r] * ex2((m[r] - mr) * LOG2E);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    m[r] = mr * LOG2E;  // from here on: the row max in log2 units
-    l[r] = 1.f / lr;    // and the reciprocal of the row sum
-  }
-
-  // pass 2: p = 2^(s log2 e - max log2 e) / sum rounded to bf16, o += p v
-  float o[8][4];
+    if (row + 8 * r >= Tq) continue;
+    bf16* dst = out + (size_t)(row + 8 * r) * C + col0 + 2 * tq;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
-  load_rows<BKV>(k_buf, kg, 0, Tkv, C, tid);
-  load_rows<BKV>(v_buf, vg, 0, Tkv, C, tid);
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      const int nb = (it + 1) & 1;
-      load_rows<BKV>(k_buf + nb * TILE, kg, (it + 1) * BKV, Tkv, C, tid);
-      load_rows<BKV>(v_buf + nb * TILE, vg, (it + 1) * BKV, Tkv, C, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tile_scores(s, qf, k_buf + (it & 1) * TILE, lane, Tkv - it * BKV);
-    // the score fragments of key tiles 2kk, 2kk+1 are the A fragment of
-    // key step kk: (g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const float* sj = s[2 * kk + h2];
-        pf[kk][2 * h2] = pack_bf16(ex2(fmaf(sj[0], LOG2E, -m[0])) * l[0],
-                                   ex2(fmaf(sj[1], LOG2E, -m[0])) * l[0]);
-        pf[kk][2 * h2 + 1] = pack_bf16(ex2(fmaf(sj[2], LOG2E, -m[1])) * l[1],
-                                       ex2(fmaf(sj[3], LOG2E, -m[1])) * l[1]);
-      }
-    }
-    const bf16* vt = v_buf + (it & 1) * TILE;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        // B fragments of dh tiles 2nj and 2nj+1 from V [key][dh], transposed
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(&vt[(kk * 16 + (lane & 15)) * LD + nj * 16 +
-                                            (lane >> 4) * 8]));
-        mma_16816(o[2 * nj], pf[kk], bv);
-        mma_16816(o[2 * nj + 1], pf[kk], bv + 2);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: fragment (g, 2t..2t+1) and (g+8, 2t..2t+1) of each 16x8 tile
-  const int g = lane >> 2, t = lane & 3;
-  const int row = q0 + warp * 16 + g;
-  bf16* og = out + b * Tq * C + head;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (row < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * C + col) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
-    if (row + 8 < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)(row + 8) * C + col) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / scale[r], o[4 * j + 2 * r + 1] / scale[r]);
   }
 }
+
+// -- short form: Tkv <= 256, the whole strip in registers -------------------
+
+__global__ void __launch_bounds__(128, 2)
+attention_short_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                       int Tq, int Tkv, int C, int npad) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2];  // q and k; v
+  uint8_t* sq = align_smem(smem_raw);
+  uint8_t* sk = sq + Q_BYTES;
+  uint8_t* sv = sk + npad * ROW_BYTES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * QT;
+  const int nch = npad / 16;  // 16-key chunks of the strip
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], Q_BYTES + npad * ROW_BYTES);
+    tma_load(sq, &tm_q, &bars[0], h * DH, q0, b);
+    tma_load(sk, &tm_k, &bars[0], h * DH, 0, b);
+    mbar_expect_tx(&bars[1], npad * ROW_BYTES);
+    tma_load(sv, &tm_v, &bars[1], h * DH, 0, b);
+  }
+
+  // s = q k^T: 16 keys a wgmma (measured faster here than 64 a wgmma for
+  // the whole 64-key blocks), chunk c into s[8c..8c+7]
+  float s[8 * SHORT_KV / 16];
+  const uint32_t q_addr = smem_u32(sq), k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+  mbar_wait(&bars[0], 0);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < SHORT_KV / 16; ++c) {
+    if (c < nch) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_n16(s + 8 * c, kmajor_desc(q_addr, kk),
+                     kmajor_desc(k_addr + c * 16 * ROW_BYTES, kk), kk > 0);
+    }
+  }
+  wg_commit();
+  wg_wait<0>();
+  pin<8 * SHORT_KV / 16>(s);
+
+  // exact softmax over the row: keys past Tkv are -inf; e = 2^(s log2e -
+  // max log2e) in place, then p = e * (1 / sum) rounded to bf16
+  // (partial maxima and sums two a row, for independent chains)
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < SHORT_KV / 16; ++c) {
+    if (c < nch) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 16 * c + 8 * (i >> 2) + 2 * tq + (i & 1);
+        if (col >= Tkv) s[8 * c + i] = -INFINITY;
+        mx[(i >> 1) & 3] = fmaxf(mx[(i >> 1) & 3], s[8 * c + i]);
+      }
+    }
+  }
+  mx[0] = quad_max(fmaxf(mx[0], mx[2])) * LOG2E;  // row g
+  mx[1] = quad_max(fmaxf(mx[1], mx[3])) * LOG2E;  // row g + 8
+#pragma unroll
+  for (int c = 0; c < SHORT_KV / 16; ++c) {
+    if (c < nch) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s[8 * c + i] = ex2(fmaf(s[8 * c + i], LOG2E, -mx[(i >> 1) & 1]));
+        sum[(i >> 1) & 3] += s[8 * c + i];
+      }
+    }
+  }
+  const float inv[2] = {1.f / quad_sum(sum[0] + sum[2]), 1.f / quad_sum(sum[1] + sum[3])};
+  uint32_t p[4 * SHORT_KV / 16];
+#pragma unroll
+  for (int c = 0; c < SHORT_KV / 16; ++c) {
+    if (c < nch) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[4 * c + i] = pack_bf16(s[8 * c + 2 * i] * inv[i & 1], s[8 * c + 2 * i + 1] * inv[i & 1]);
+    }
+  }
+
+  // o = p v: 16 keys a k-step
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(&bars[1], 0);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < SHORT_KV / 16; ++c)
+    if (c < nch) wgmma_rs_n64_tb(o, p + 4 * c, mnmajor_desc(v_addr, c));
+  wg_commit();
+  wg_wait<0>();
+  pin<32>(o);
+  const float one[2] = {1.f, 1.f};
+  store_rows(out + (size_t)b * Tq * C, o, one, q0 + warp * 16 + g, Tq, (size_t)h * DH, C, tq);
+}
+
+// -- long form: Tkv > 256, one pass over a ring of K and V tiles -------------
+
+// s = q k^T against one 128-key tile (four 16-deep k-steps): one commit group
+__device__ __forceinline__ void issue_qk(float* s, uint32_t q_tile, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n128(s, kmajor_desc(q_tile, kk), kmajor_desc(k_tile, kk), kk > 0);
+  wg_commit();
+}
+
+// o += p~ v over one 128-key tile: one commit group
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t* p, uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_n64_tb(o, p + 4 * kk, mnmajor_desc(v_tile, kk));
+  wg_commit();
+}
+
+// keys at or past n_valid of the tile to -inf; then per row (r = 0: g,
+// r = 1: g + 8) the new max m, alpha = 2^((m_old - m) log2e), p~ =
+// 2^(s log2e - m log2e) in place in fp32, and l = l alpha + this thread's
+// share of the row's sum of p~
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* alpha,
+                                               int n_valid, int tq) {
+  if (n_valid < KT) {
+#pragma unroll
+    for (int i = 0; i < 2 * KT / 4; ++i)
+      if (8 * (i >> 2) + 2 * tq + (i & 1) >= n_valid) s[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // four partial maxima and sums, for independent chains
+    float mp[4] = {m[r], -INFINITY, -INFINITY, -INFINITY}, sp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj)
+      mp[jj & 3] = fmaxf(mp[jj & 3], fmaxf(s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]));
+    const float mx = quad_max(fmaxf(fmaxf(mp[0], mp[1]), fmaxf(mp[2], mp[3])));
+    alpha[r] = ex2((m[r] - mx) * LOG2E);
+    m[r] = mx;
+    const float mb = -mx * LOG2E;
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj) {
+      s[4 * jj + 2 * r] = ex2(fmaf(s[4 * jj + 2 * r], LOG2E, mb));
+      s[4 * jj + 2 * r + 1] = ex2(fmaf(s[4 * jj + 2 * r + 1], LOG2E, mb));
+      sp[jj & 3] += s[4 * jj + 2 * r] + s[4 * jj + 2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + ((sp[0] + sp[1]) + (sp[2] + sp[3]));
+  }
+}
+
+__device__ __forceinline__ void rescale(float* o, const float* alpha) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// p~ rounded to bf16, as the A fragments of the tile's eight k-steps
+__device__ __forceinline__ void pack_tile(uint32_t* p, const float* s) {
+#pragma unroll
+  for (int i = 0; i < KT / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+constexpr int NCONS = 2;  // consumer warpgroups a block: 128 query rows
+constexpr int ST = 2;     // ring stages of K and of V
+constexpr int LONG_SMEM = ALIGN + NCONS * Q_BYTES + 2 * ST * KV_BYTES;
+
+// NCONS consumer warpgroups of QT query rows each, after one producer
+// warpgroup (warp 0 of it issues every TMA load); one block an SM,
+// launched at 168 registers a thread: the producer drops to 24 and the
+// consumers take 240.
+__global__ void __launch_bounds__(128 * (NCONS + 1), 1)
+attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                      int Tq, int Tkv, int C) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * ST];
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + ST;
+  uint64_t* k_empty = bars + 1 + 2 * ST;
+  uint64_t* v_empty = bars + 1 + 3 * ST;
+  uint8_t* sq = align_smem(smem_raw);
+  uint8_t* sk = sq + NCONS * Q_BYTES;
+  uint8_t* sv = sk + ST * KV_BYTES;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * (QT * NCONS);
+  const int n_tiles = (Tkv + KT - 1) / KT;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&k_empty[i], 4 * NCONS);  // lane 0 of every consumer warp
+      mbar_init(&v_empty[i], 4 * NCONS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer
+    regs_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, NCONS * Q_BYTES);
+      for (int c = 0; c < NCONS; ++c)
+        tma_load(sq + c * Q_BYTES, &tm_q, q_full, h * DH, q0 + c * QT, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        const uint32_t ph = (j / ST) & 1;
+        mbar_wait(&k_empty[st], ph ^ 1);
+        mbar_expect_tx(&k_full[st], KV_BYTES);
+        tma_load(sk + st * KV_BYTES, &tm_k, &k_full[st], h * DH, j * KT, b);
+        mbar_wait(&v_empty[st], ph ^ 1);
+        mbar_expect_tx(&v_full[st], KV_BYTES);
+        tma_load(sv + st * KV_BYTES, &tm_v, &v_full[st], h * DH, j * KT, b);
+      }
+    }
+  } else {
+    // consumers
+    regs_inc<240>();
+    const int cw = wg - 1;
+    const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
+    const uint32_t q_addr = smem_u32(sq + cw * Q_BYTES);
+    const uint32_t k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+    float s[2 * KT / 4];   // scores of this warpgroup's 64 rows against one tile
+    uint32_t p[KT / 4];    // the previous tile's p~ as bf16 A fragments
+    float o[32];           // 64 rows x 64 dh
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    if (cw == 1) bar_arrive(1, 256);  // warpgroup 0 issues first
+    mbar_wait(q_full, 0);
+
+    // Tile j's q k^T is issued together with tile j-1's p v, so that the
+    // exponentials of tile j run while p v of tile j-1 is on the tensor
+    // cores; the two warpgroups take turns at issuing (named barriers 1
+    // and 2), so that one's exponentials run under the other's products.
+    // The loop is peeled (tile 0; tiles 1 .. n-1; the last p v) so that
+    // every wait in it completes a known commit group.
+    auto turn = [&]() { bar_sync(1 + cw, 256); };
+    auto next_turn = [&](bool last) {  // the second warpgroup's last turn frees no one
+      if (!last || cw == 0) bar_arrive(2 - cw, 256);
+    };
+    turn();
+    mbar_wait(&k_full[0], 0);
+    wg_fence();
+    issue_qk(s, q_addr, k_addr);
+    next_turn(false);
+    wg_wait<0>();
+    pin<2 * KT / 4>(s);
+    if (lane == 0) mbar_arrive(&k_empty[0]);
+    online_softmax(s, m, l, alpha, Tkv, tq);
+    pack_tile(p, s);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, sp = (j - 1) % ST;
+      turn();
+      rescale(o, alpha);  // o: tiles < j-1 against tile j-2's max, now tile j-1's
+      mbar_wait(&k_full[st], (j / ST) & 1);
+      wg_fence();
+      issue_qk(s, q_addr, k_addr + st * KV_BYTES);
+      mbar_wait(&v_full[sp], ((j - 1) / ST) & 1);
+      issue_pv(o, p, v_addr + sp * KV_BYTES);
+      next_turn(false);
+      wg_wait<1>();
+      pin<2 * KT / 4>(s);
+      if (lane == 0) mbar_arrive(&k_empty[st]);
+      online_softmax(s, m, l, alpha, Tkv - j * KT, tq);
+      wg_wait<0>();
+      pin<32>(o);
+      pin<KT / 4>(p);
+      if (lane == 0) mbar_arrive(&v_empty[sp]);
+      pack_tile(p, s);
+    }
+    const int sl = (n_tiles - 1) % ST;
+    turn();
+    rescale(o, alpha);
+    mbar_wait(&v_full[sl], ((n_tiles - 1) / ST) & 1);
+    wg_fence();
+    issue_pv(o, p, v_addr + sl * KV_BYTES);
+    next_turn(true);
+    wg_wait<0>();
+    pin<32>(o);
+    const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    store_rows(out + (size_t)b * Tq * C, o, lsum, q0 + cw * QT + warp * 16 + g, Tq,
+               (size_t)h * DH, C, tq);
+  }
+}
+
+// -- fp32 ----------------------------------------------------------------------
 
 __global__ void __launch_bounds__(F32_BQ)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -403,25 +694,102 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// a bf16 [B, T, C] tensor as the 3-D map {C, T, B}, box {64, rows, 1},
+// 128-byte swizzle; boxes past T or B read zeros
+CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int B, int T, int C,
+                  int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)DH, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// dynamic shared memory above 48 KB, once a process and device for each kernel
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool* done, int dev) {
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+int bf16_launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tkv,
+                int H, cudaStream_t stream) {
+  static bool smem_set[2][MAX_DEVICES] = {};
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int C = H * DH;
+  const bool short_form = Tkv <= SHORT_KV;
+  const int npad = (Tkv + 15) / 16 * 16;
+  CUtensorMap tq, tk, tv;
+  CUresult res = make_map(encode, &tq, q, B, Tq, C, QT);
+  if (res == CUDA_SUCCESS) res = make_map(encode, &tk, k, B, Tkv, C, short_form ? npad : KT);
+  if (res == CUDA_SUCCESS) res = make_map(encode, &tv, v, B, Tkv, C, short_form ? npad : KT);
+  if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);  // a CUresult, offset
+  bf16* o = static_cast<bf16*>(out);
+  if (short_form) {
+    const int smem = ALIGN + Q_BYTES + 2 * npad * ROW_BYTES;
+    err = allow_smem(attention_short_kernel, ALIGN + Q_BYTES + 2 * SHORT_KV * ROW_BYTES,
+                     smem_set[0], dev);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + QT - 1) / QT, H, B);
+    attention_short_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, o, Tq, Tkv, C, npad);
+  } else {
+    err = allow_smem(attention_long_kernel, LONG_SMEM, smem_set[1], dev);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + NCONS * QT - 1) / (NCONS * QT), H, B);
+    attention_long_kernel<<<grid, 128 * (NCONS + 1), LONG_SMEM, stream>>>(tq, tk, tv, o, Tq, Tkv,
+                                                                          C);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [B, Tq, H*64], k and v [B, Tkv, H*64], out [B, Tq, H*64]: contiguous,
 // 16-byte aligned, all bf16 (is_bf16 = 1) or all fp32 (is_bf16 = 0);
-// q pre-scaled.  B, H, Tq, Tkv >= 1.
+// q pre-scaled.  B, H, Tq, Tkv >= 1.  Returns a cudaError_t, or 10000
+// plus the CUresult when a tensor map cannot be made.
 extern "C" int attention_launch(const void* q, const void* k, const void* v, void* out,
                                 int B, int Tq, int Tkv, int H, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return bf16_launch(q, k, v, out, B, Tq, Tkv, H, s);
   const int C = H * DH;
-  if (is_bf16) {
-    dim3 grid((Tq + BQ - 1) / BQ, H, B);
-    attention_bf16_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tkv, C);
-  } else {
-    dim3 grid((Tq + F32_BQ - 1) / F32_BQ, H, B);
-    attention_f32_kernel<<<grid, F32_BQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), Tq, Tkv, C);
-  }
+  dim3 grid((Tq + F32_BQ - 1) / F32_BQ, H, B);
+  attention_f32_kernel<<<grid, F32_BQ, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Tq, Tkv, C);
   return cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """The port's attention kernel wrappers against the JAX package: the plain
 versions of ``flash_attention_long``, ``fused_attention`` and
 ``fused_attention_heads`` against the Pallas kernels (interpret mode on
-the CPU), the helpers, the tiny encoder on both kernel routes against
-the JAX encoder, and (on a card) the CUDA kernel behind all three
-wrappers against its plain versions.
+the CPU), the long form's CPU emulation against them and against fp64,
+the helpers, the tiny encoder on both kernel routes against the JAX
+encoder, and (on a card) the CUDA kernel's two bf16 forms behind all the
+wrappers against their plain versions and the emulation.
 
 The JAX side is imported inside fixtures, so that on a machine with a
 card and no JAX the CUDA tests still run:
@@ -116,6 +117,65 @@ def test_fused_attention_heads_plain_matches_jax_kernel(T, h_blk, dtype, jat, jn
     ref = jat.fused_attention_heads(jq, jk, jv, num_heads=H, h_blk=h_blk, interpret=True)
     out = ta.fused_attention_heads(q, k, v, H, h_blk=h_blk)
     _assert_close(_np(out), np.asarray(ref.astype(jnp.float32)), dtype)
+
+
+# -- the long form's numerics, emulated on the CPU ----------------------------
+
+EMULATION_CASES = [(256, 256), (201, 201), (512, 512), (1024, 1024), (128, 1024)]
+EMULATION_IDS = ["T256", "T201", "T512", "T1024", "cross"]
+
+
+def _emulation_inputs(tq, tkv, seed):
+    return _inputs(seed, (B, tq, C), (B, tkv, C), (B, tkv, C))
+
+
+@pytest.mark.parametrize("tq,tkv", EMULATION_CASES, ids=EMULATION_IDS)
+def test_online_emulation_matches_jax_kernel(tq, tkv, jfa, jnp):
+    """The one-pass form's roundings, at bf16, against the reference's
+    whole-strip Pallas kernel (interpret mode) on the same inputs."""
+    (jq, jk, jv), (q, k, v) = _pair(_emulation_inputs(tq, tkv, tq + tkv), "bfloat16", jnp)
+    block_q = 128 if tq % 128 == 0 else tq
+    ref = jfa.flash_attention_long(jq, jk, jv, num_heads=H, block_q=block_q, interpret=True)
+    out = ta.attention_online_emulated(q, k, v, H)
+    assert out.dtype == torch.bfloat16
+    _assert_close(_np(out), np.asarray(ref.astype(jnp.float32)), "bfloat16")
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("tq,tkv", EMULATION_CASES, ids=EMULATION_IDS)
+def test_online_emulation_within_plain_envelope_of_fp64(tq, tkv):
+    """Rounding p~ rather than p costs no accuracy: the emulation's distance
+    from an fp64 reference on the same bf16 inputs stays within 1.5x of the
+    plain version's (the ROUTE_ENVELOPE form of chip_smoke.py)."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _emulation_inputs(tq, tkv, tq * tkv))
+    qh, kh, vh = (x.double().reshape(B, -1, H, DH).transpose(1, 2) for x in (q, k, v))
+    truth = (torch.softmax(qh @ kh.transpose(-1, -2), dim=-1) @ vh).transpose(1, 2)
+    truth = truth.reshape(B, tq, C).numpy()
+    plain = _rel_l2(_np(ta.flash_attention_long_plain(q, k, v, H)), truth)
+    emulated = _rel_l2(_np(ta.attention_online_emulated(q, k, v, H)), truth)
+    assert emulated <= 1.5 * plain
+
+
+@pytest.mark.parametrize("t", [201, 256])
+def test_online_emulation_is_plain_at_short_kv(t):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _emulation_inputs(t, t, 3))
+    assert ta.attention_form(t) == "short"
+    assert torch.equal(ta.attention_online_emulated(q, k, v, H),
+                       ta.flash_attention_long_plain(q, k, v, H))
+
+
+@pytest.mark.parametrize("tq,tkv", [(512, 512), (128, 1024)], ids=["T512", "cross"])
+def test_online_emulation_at_fp32_is_the_same_function(tq, tkv):
+    """Without the bf16 rounding the one-pass form is the softmax itself."""
+    q, k, v = map(torch.from_numpy, _emulation_inputs(tq, tkv, 9))
+    assert ta.attention_form(tkv) == "long"
+    np.testing.assert_allclose(ta.attention_online_emulated(q, k, v, H).numpy(),
+                               ta.flash_attention_long_plain(q, k, v, H).numpy(),
+                               rtol=0, atol=F32_TOL)
 
 
 def test_attention_reference_matches_jax(jfa, jnp):
@@ -321,6 +381,55 @@ def test_fused_attention_kernels_match_plain(cuda, dtype, shape):
     ref = ta.fused_attention_plain(q, k, v)
     _assert_kernel_close(out, ref)
     _assert_kernel_close(out_heads, ref.reshape(b, t, h * DH))
+
+
+def _ulps_beyond_one(out, ref):
+    """Elements of ``out`` further than one bf16 ulp of ``ref`` from it."""
+    _, exp = torch.frexp(ref.float())
+    ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+    return int(((out.float() - ref.float()).abs() > ulp).sum())
+
+
+# the edges of the two bf16 forms: (B, Tq, Tkv, H)
+FORM_EDGES = {
+    "short_T256": (2, 256, 256, 4), "long_T257": (2, 257, 257, 4),
+    "long_T384": (2, 384, 384, 4), "short_T201": (2, 201, 201, 4),
+    "short_T1": (2, 1, 1, 4), "long_kv_not_128_multiple": (1, 2624, 2624, 16),
+    "strip640_of_2560": (1, 640, 2560, 16), "strip1280_of_5120": (1, 1280, 5120, 16),
+    "short_batch_boundary_in_box": (36, 201, 201, 16),
+    "long_batch_boundary_in_box": (3, 300, 300, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FORM_EDGES.values()), ids=list(FORM_EDGES))
+def test_bf16_forms_match_plain_and_emulation(cuda, shape):
+    b, tq, tkv, h = shape
+    q, k, v = _cuda_inputs(cuda, torch.bfloat16, (b, tq, h * DH), (b, tkv, h * DH),
+                           (b, tkv, h * DH), seed=tq + tkv)
+    out = ta._attention_cuda(q, k, v, h)
+    torch.cuda.synchronize()
+    plain = ta.flash_attention_long_plain(q, k, v, h)
+    emulated = ta.attention_online_emulated(q, k, v, h)
+    print(f"{shape} form {ta.attention_form(tkv)}: beyond one bf16 ulp of the plain version "
+          f"{_ulps_beyond_one(out, plain)}, of the emulation {_ulps_beyond_one(out, emulated)} "
+          f"of {out.numel()}")
+    _assert_kernel_close(out, plain)
+    _assert_kernel_close(out, emulated)
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n_seq", [(2560, 4), (5120, 4), (5120, 2)])
+def test_strips_bit_equal_to_the_whole_sequence(cuda, t, n_seq):
+    """A row's result depends on its q row, K and V alone: the strips of a
+    sequence-parallel mesh give exactly the whole-sequence rows."""
+    q, k, v = _cuda_inputs(cuda, torch.bfloat16, *[(1, t, 16 * DH)] * 3, seed=t + n_seq)
+    whole = ta.flash_attention_long(q, k, v, 16, block_q=128)
+    strips = torch.cat([ta.sp_flash_attention_long(piece.contiguous(), k, v, 16)
+                        for piece in q.chunk(n_seq, dim=1)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(strips, whole)
 
 
 @pytest.mark.cuda
