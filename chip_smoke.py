@@ -17,7 +17,14 @@ Phases:
      it replaces; the attention rows also with the form the kernel took,
      its floor of exponentials, the long form against its emulation, and
      the kernel's and SDPA's times replayed from a CUDA graph (device
-     time without the host's launch cost);
+     time without the host's launch cost); the fp32 encode (3xTF32) also
+     against an fp64 product, within 1.5x of the plain version's error
+     (also at N 1, 68, 127 over several draws), with its split pass and
+     GEMM timed apart, and the front-end tail's LN0 pass timed alone on
+     the path's h0 and on a channels-first one; with ``--parent DIR``
+     (``git archive <commit> sls_tpu_torch | tar -x -C DIR``) that
+     commit's wrappers of rows 3 and 8, with its kernels built from DIR,
+     timed beside them (old, new, new, old);
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -95,6 +102,7 @@ import numpy as np
 # data-sheet peaks of one H100 SXM at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # exponentials a second on the special-function units of an H100 SXM
 # (FlashAttention-3, Shah et al. 2024): the attention kernel's second floor
@@ -102,6 +110,10 @@ PEAK_EXP = 3.9e12
 
 ENCODE_TOL = 1e-3      # same bf16 operands, fp32 sums over D=1024 in another order
 ENCODE_F32_TOL = 1e-4  # fp32 operands, fp32 sums over D=1024 in another order
+# the fp32 encode (3xTF32 on the tensor cores) may lie at most this many
+# times further from an fp64 product (relative L2) than the plain fp32 one
+ENCODE_F64_ENVELOPE = 1.5
+ENCODE_F64_SEEDS = 16  # inputs drawn at each of N = 1, 68, 127 for the envelope check
 DECODE_TOL = 1e-4      # fp32 sums of ~k terms in another order
 TOPK_TOL = 0.0         # the same 31-step search on the same bits: exact
 VOTE_TOL = 0.0         # the same bf16 steps, chunk sums in the same order: exact
@@ -155,10 +167,11 @@ def path_kernels(layers: int) -> dict:
 
 
 # the hand-written kernels' names as the profiler shows them
-OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "encode_f32_kernel",
-               "window_mask_kernel", "frame_vote_kernel", "decode_kernel",
-               "attention_short_kernel", "attention_long_kernel", "frontend_ln0_kernel",
-               "frontend_conv_bf16_kernel")
+OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "split_x_kernel", "split_w_kernel",
+               "encode_tf32x3_kernel", "window_mask_kernel", "frame_vote_kernel",
+               "decode_kernel", "attention_short_kernel", "attention_long_kernel",
+               "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
+               "frontend_conv_wgmma_kernel")
 ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
@@ -240,7 +253,70 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(torch, tk, device, shape, iters):
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def alternate(torch, new, old, device, iters) -> dict:
+    """The kernel's and its parent's ms on the same inputs, timed in turns
+    (old, new, new, old): ``ms`` and ``parent_ms`` each the mean of their
+    two runs."""
+    runs = [timed(torch, fn, device, iters) for fn in (old, new, new, old)]
+    return {"ms": (runs[1] + runs[2]) / 2, "parent_ms": (runs[0] + runs[3]) / 2,
+            "parent_alternation_ms": runs}
+
+
+def load_parent(root):
+    """The parent commit's wrappers of rows 3 and 8 (``sae_encode_fused``,
+    ``frontend_tail_fused``), imported from ``root``, a ``git archive`` of
+    that commit's ``sls_tpu_torch/``, to be timed beside the kernels that
+    replace them (``--parent``).  They build that commit's sources into
+    ``root/build/`` at first use.  The port's own modules are set aside
+    while the parent's import and put back after."""
+    import importlib
+
+    root = Path(root).resolve()
+
+    def ours(name):
+        return name == "sls_tpu_torch" or name.startswith("sls_tpu_torch.")
+
+    saved = {name: sys.modules.pop(name) for name in list(sys.modules) if ours(name)}
+    sys.path.insert(0, str(root))
+    try:
+        tk = importlib.import_module("sls_tpu_torch.kernels.sae_kernels")
+        tf = importlib.import_module("sls_tpu_torch.kernels.frontend")
+        check(Path(tk.__file__).resolve().is_relative_to(root),
+              f"the parent's wrappers are imported from {root}")
+    finally:
+        sys.path.remove(str(root))
+        for name in [name for name in sys.modules if ours(name)]:
+            del sys.modules[name]
+        sys.modules.update(saved)
+    return {"sae_encode_fused": tk.sae_encode_fused,
+            "frontend_tail_fused": tf.frontend_tail_fused}
+
+
+def encode_f64_sweep(torch, tk, device, d, m) -> float:
+    """The fp32 encode's relative L2 error against fp64 over the plain fp32
+    version's, worst over N = 1, 68, 127 (one row, and ragged 128-row
+    tiles, where cuBLAS's fp32 product is at its most accurate) and
+    ``ENCODE_F64_SEEDS`` draws each of phase 2's inputs."""
+    worst = 0.0
+    for n in (1, 68, 127):
+        for seed in range(ENCODE_F64_SEEDS):
+            g = torch.Generator(device=device).manual_seed(1000 * n + seed)
+            x = torch.randn(n, d, device=device, generator=g)
+            w_dec = torch.rand(m, d, device=device, generator=g) * 2 - 1
+            w_enc = (w_dec / torch.linalg.vector_norm(w_dec, dim=1, keepdim=True)).t().contiguous()
+            b_enc = torch.randn(m, device=device, generator=g) * 0.1
+            b_dec = torch.randn(d, device=device, generator=g) * 0.1
+            truth = torch.relu((x.double() - b_dec.double()) @ w_enc.double() + b_enc.double())
+            worst = max(worst, rel_l2(tk.sae_encode_fused(x, w_enc, b_enc, b_dec), truth)
+                        / rel_l2(tk.sae_encode_fused_plain(x, w_enc, b_enc, b_dec), truth))
+    return worst
+
+
+def phase_kernels(torch, tk, device, shape, iters, parent=None):
     batch, frames, d, m, k = shape
     n = batch * frames
     g = torch.Generator(device=device).manual_seed(0)
@@ -324,20 +400,47 @@ def phase_kernels(torch, tk, device, shape, iters):
     err3 = float((acts32 - acts_ref).abs().max())
     log(f"encode (fp32): max_abs_err {err3:.3e} (tolerance {ENCODE_F32_TOL})")
     check(err3 <= ENCODE_F32_TOL, "fp32 encode kernel agrees with the plain version")
-    ops3 = 2.0 * n * d * m
-    bound3, by3 = bound(bytes1, ops3, PEAK_FP32_FLOPS)
+    truth = torch.relu((x.double() - b_dec.double()) @ w_enc.double() + b_enc.double())
+    f64 = {"rel_l2_vs_fp64": rel_l2(acts32, truth), "plain_rel_l2_vs_fp64": rel_l2(acts_ref, truth)}
+    del truth
+    log(f"encode (fp32): relative L2 against fp64 {f64['rel_l2_vs_fp64']:.3e}, the plain "
+        f"version's {f64['plain_rel_l2_vs_fp64']:.3e} (x{ENCODE_F64_ENVELOPE})")
+    check(f64["rel_l2_vs_fp64"] <= ENCODE_F64_ENVELOPE * f64["plain_rel_l2_vs_fp64"],
+          "fp32 encode kernel lies within the plain version's fp64 envelope")
+    f64["fp64_ratio_worst_small_n"] = encode_f64_sweep(torch, tk, device, d, m)
+    check(f64["fp64_ratio_worst_small_n"] <= ENCODE_F64_ENVELOPE,
+          "fp32 encode kernel lies within the fp64 envelope at every small N and seed")
+    # the function's own bytes, and its three TF32 products at the TF32 peak
+    ops3 = 3 * 2.0 * n * d * m
+    bound3, by3 = bound(bytes1, ops3, PEAK_TF32_FLOPS)
     enc32 = {
         "name": "sae_encode_fused", "route": "cuda",
         "source": "sls_tpu_torch/kernels/csrc/sae_encode.cu",
         "replaces": "sls_tpu/kernels/sae_kernels.py:74",
-        "max_abs_err": err3, "tolerance": ENCODE_F32_TOL,
-        "ms": timed(torch, lambda: tk.sae_encode_fused(x, w_enc, b_enc, b_dec), device, iters),
+        "max_abs_err": err3, "tolerance": ENCODE_F32_TOL, **f64,
         "plain_ms": timed(torch, lambda: tk.sae_encode_fused_plain(x, w_enc, b_enc, b_dec),
                           device, iters),
         "library_ms": timed(torch, lambda: torch.relu(torch.addmm(b_enc, x - b_dec, w_enc)),
                             device, iters),
-        "bound_ms": bound3, "bound_by": by3, "ops": ops3, "bytes": bytes1,
+        "bound_ms": bound3, "bound_by": f"{by3}, 3xTF32", "ops": ops3, "bytes": bytes1,
     }
+    new3 = lambda: tk.sae_encode_fused(x, w_enc, b_enc, b_dec)  # noqa: E731
+    if parent is None:
+        enc32["ms"] = timed(torch, new3, device, iters)
+    else:
+        enc32.update(alternate(torch, new3, lambda: parent["sae_encode_fused"](
+            x, w_enc, b_enc, b_dec), device, iters))
+    if device.type == "cuda":
+        # the split pass and the GEMM apart, from the profiler's device times
+        by_name = device_time_by_kernel(new3, reps=iters)["by_name_ms"]
+        enc32["split_ms"] = sum(ms for name, ms in by_name.items() if "split_" in name)
+        enc32["gemm_ms"] = sum(ms for name, ms in by_name.items() if "encode_tf32x3" in name)
+    log(f"encode (fp32): {enc32['ms']:.4f} ms (split pass {enc32.get('split_ms')}, GEMM "
+        f"{enc32.get('gemm_ms')}), addmm {enc32['library_ms']:.4f} ms, bound {bound3:.4f} ms "
+        f"(3xTF32; fp32 SIMT {bound(bytes1, ops3 / 3, PEAK_FP32_FLOPS)[0]:.4f}); worst ratio "
+        f"to the plain version's fp64 error at N 1, 68, 127 over {ENCODE_F64_SEEDS} seeds "
+        f"{f64['fp64_ratio_worst_small_n']:.4f}; the parent's kernel {enc32.get('parent_ms')} "
+        f"ms (old, new, new, old: {enc32.get('parent_alternation_ms')})")
 
     # kernel 4: the row top-k alone, on the plain fp32 encode's activations
     sparse = tk.topk_sparsify(acts_ref, k)
@@ -536,7 +639,27 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
     return rows
 
 
-def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters):
+def ln0_pass(torch, tf, h0, args, kw):
+    """Kernel 8's LN0 + GELU0 launch alone (its first of seven) on ``h0``
+    at its strides, as the wrapper makes it, for timing."""
+    import ctypes
+
+    from sls_tpu_torch.kernels import build
+
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn = build.load("frontend_tail").frontend_ln0_launch
+    fn.argtypes, fn.restype = [P, P, I, I, I, L, L, L, P, P, F, I, I, P], ctypes.c_int
+    b, n0, c = h0.shape
+    pitch = tf.level_pitches(n0, kw["specs"])[0]
+    out = torch.empty(b, pitch, c, device=h0.device, dtype=h0.dtype)
+    scale, shift = (t.float().contiguous() for t in args[2:])
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: build.check(fn(h0.data_ptr(), out.data_ptr(), b, n0, pitch, *h0.stride(),
+                                  scale.data_ptr(), shift.data_ptr(), 1e-5,
+                                  int(kw["approx_gelu"]), 1, stream), "frontend_ln0")
+
+
+def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters, parent=None):
     """Kernel 8 against its plain version on the main path's input: conv
     0's output of a batch of audio, the [B, N0, C] view over its
     channels-first storage, through a front-end with seeded random
@@ -557,16 +680,12 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters):
     few = 3  # utterances the fp64-sum envelope is measured on
     with torch.inference_mode():
         wav = torch.from_numpy(wavs).to(device)
-        h0 = fe.conv[0](wav[:, None, :].to(enc_cfg.dtype)).transpose(1, 2)
+        h0 = fe.level0(wav)  # as the encoder's forward makes it
         out = tf.frontend_tail_fused(h0, *args, **kw)
         sync(torch, device)
         ref = tf.frontend_tail_fused_plain(h0, *args, **kw)
         ref64 = tf.frontend_tail_fused_plain(h0[:few], *args, **kw, sum_dtype=torch.float64)
         out, ref, ref64 = out.float(), ref.float(), ref64.float()
-
-        def rel_l2(a, b):
-            return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-
         err = float((out - ref).abs().max())
         tol = FRONTEND_REL_TOL * float(ref.abs().max())
         rel, envelope = rel_l2(out[:few], ref[:few]), rel_l2(ref64, ref[:few])
@@ -587,20 +706,37 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters):
             "replaces": "sls_tpu/kernels/frontend.py:184",
             "max_abs_err": err, "tolerance": tol, "elements_beyond_one_bf16_ulp": ulps,
             "elements": out.numel(), "rel_l2_vs_plain": rel, "envelope_rel_l2": envelope,
-            "shape": {"h0": list(h0.shape), "out": list(out.shape), "specs": kw["specs"]},
-            "ms": timed(torch, lambda: tf.frontend_tail_fused(h0, *args, **kw), device, iters),
+            "shape": {"h0": list(h0.shape), "h0_strides": list(h0.stride()),
+                      "out": list(out.shape), "specs": kw["specs"]},
             "plain_ms": timed(torch, lambda: tf.frontend_tail_fused_plain(h0, *args, **kw),
                               device, max(iters // 4, 1)),
             "library_ms": None,  # no one PyTorch call computes this function
             "unfused_route_ms": timed(torch, lambda: fe.tail(h0), device, iters),
             "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
         }
+        new = lambda: tf.frontend_tail_fused(h0, *args, **kw)  # noqa: E731
+        if parent is None:
+            row["ms"] = timed(torch, new, device, iters)
+        else:
+            row.update(alternate(torch, new, lambda: parent["frontend_tail_fused"](
+                h0, *args, **kw), device, iters))
+        if device.type == "cuda":
+            # its LN0 pass on the path's h0, and on a channels-first copy
+            # (frames unit-stride), which takes the other LN0 kernel
+            other = h0.transpose(1, 2).contiguous().transpose(1, 2)
+            row["ln0_ms"] = timed(torch, ln0_pass(torch, tf, h0, args, kw), device, iters)
+            row["ln0_channels_first_ms"] = timed(torch, ln0_pass(torch, tf, other, args, kw),
+                                                 device, iters)
+            del other
     row["kernel_ms"] = row["ms"]
     log(f"frontend_tail_fused {row['shape']}: max_abs_err {err:.3e} (tolerance {tol:.3e}), "
         f"{ulps} of {out.numel()} elements beyond one bf16 ulp; relative L2 {rel:.3e} against "
         f"an fp64-sum envelope of {envelope:.3e} (x{FRONTEND_ENVELOPE}); {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, unfused route {row['unfused_route_ms']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({by})")
+        f"bound {bound_ms:.4f} ms ({by}); its LN0 pass {row.get('ln0_ms')} ms (channels-first "
+        f"h0: {row.get('ln0_channels_first_ms')} ms); the parent's "
+        f"kernel {row.get('parent_ms')} ms (old, new, new, old: "
+        f"{row.get('parent_alternation_ms')})")
     return row
 
 
@@ -726,6 +862,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print each path's eval-step device time by kernel")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
+                         "parent's): phase 2 times its wrappers of rows 3 and 8 beside "
+                         "this tree's")
     args = ap.parse_args(argv)
 
     import torch
@@ -799,7 +939,8 @@ def main(argv=None) -> int:
     shape = (batch, frames, sae_cfg.activation_dim, sae_cfg.dict_size, sae_cfg.k)
     log(f"phase 2: kernels at N={batch * frames} ({batch}x{frames}) D={shape[2]} "
         f"M={shape[3]} k={shape[4]} window={WINDOW}")
-    rows = phase_kernels(torch, tk, device, shape, iters=20 if on_card else 2)
+    parent = load_parent(args.parent) if on_card and args.parent else None
+    rows = phase_kernels(torch, tk, device, shape, iters=20 if on_card else 2, parent=parent)
     log(f"phase 2: attention at [B, T, C, H] {attn_long} (long T) and [B, T, H, Dh] "
         f"{attn_short} (short T), bf16")
     rows += phase_attention(torch, ta, device, attn_long, attn_short,
@@ -810,7 +951,7 @@ def main(argv=None) -> int:
     log(f"phase 2: the conv front-end tail on conv 0's output of {batch} utterances of {cut} "
         f"samples, {enc_cfg.conv_layers[0][0]} channels, {enc_cfg.dtype}")
     rows.append(phase_frontend(torch, tf, xlsr, enc_cfg, wavs[:batch], device,
-                               iters=20 if on_card else 2))
+                               iters=20 if on_card else 2, parent=parent))
     modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
                **{n: tf for n in FRONTEND_KERNELS}}
     wrappers = {name: getattr(modules[name], name) for name in KERNELS}
@@ -1025,9 +1166,6 @@ def main(argv=None) -> int:
     plain_model = sharing(dataclasses.replace(enc_cfg, flash_long_t=0))
     fp32_encoder = sharing(dataclasses.replace(enc_cfg, flash_long_t=0, dtype=torch.float32,
                                                approx_gelu=True)).encoder
-
-    def rel_l2(a, b):
-        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
     def forward_ms(m, w, n):
         with torch.inference_mode():
@@ -1331,7 +1469,10 @@ def main(argv=None) -> int:
         "elements_beyond_one_bf16_ulp", "form", "device_ms", "library_device_ms",
         "exp_floor_ms", "emulation_max_abs_err",
         "elements_beyond_one_bf16_ulp_vs_emulation", "cases", "unfused_route_ms", "rel_l2_vs_plain",
-        "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal") if key in row}
+        "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal", "rel_l2_vs_fp64",
+        "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "gemm_ms", "ln0_ms",
+        "ln0_channels_first_ms", "parent_ms",
+        "parent_alternation_ms") if key in row}
         for row in rows]
     batch_paths = [label for label in results if "eval_utts_per_s" in results[label]]
     print(json.dumps({"run": {"card": card.replace("\n", "; "), "batch": batch, "layers": layers,

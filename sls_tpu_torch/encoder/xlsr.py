@@ -151,10 +151,15 @@ class ConvFeatureExtractor(nn.Module):
                 self.norm.append(Fp32LayerNorm(dim, device=device))
             in_ch = dim
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def level0(self, wav: torch.Tensor) -> torch.Tensor:
+        """Conv 0's output of ``wav`` [B, samples] as the [B, T, C] view
+        both routes take."""
         h = wav[:, :, None].to(self.config.dtype)  # [B, samples, 1]
-        # [B, T, C] views over channels-first storage between layers
-        h = self.conv[0](h.transpose(1, 2)).transpose(1, 2)
+        return self.conv[0](h.transpose(1, 2)).transpose(1, 2)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        # [B, T, C] views over the convs' storage between layers
+        h = self.level0(wav)
         if self._fused_ok(wav.shape[1]):
             args, kwargs = self.tail_fused_args()
             return frontend_tail_fused(h, *args, **kwargs)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into ``build/sls_tpu_torch/<hash>/lib<name>.so`` at first use, where
-``<hash>`` is taken over every source in ``csrc/`` and the compiler
-flags, so an edit rebuilds and an unchanged tree reuses the build.  All
+``<hash>`` is taken over every source and shared header (``csrc/*.cuh``,
+which the sources include) and the compiler flags, so an edit rebuilds
+and an unchanged tree reuses the build.  All
 sources compile in parallel (one ``nvcc`` each).  The libraries are
 loaded with ``ctypes``; wrappers declare every pointer and the stream
 as ``c_void_p`` and raise when an entry returns a nonzero
@@ -37,7 +38,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
+    """The sources, one library each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    """The headers the sources share."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -49,7 +56,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -77,13 +77,14 @@
 // fp32 operands (the reference's fp32 tests; no path) take a SIMT kernel:
 // one query row a thread, K/V tiles broadcast from shared memory.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -94,129 +95,10 @@ constexpr int KT = 128;                     // keys per ring tile (long form)
 constexpr int SHORT_KV = 256;               // Tkv at or below: the short form
 constexpr int Q_BYTES = QT * ROW_BYTES;     // 8 KB
 constexpr int KV_BYTES = KT * ROW_BYTES;    // 16 KB
-constexpr int ALIGN = 1024;                 // the 128-byte swizzle's repeat
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int F32_BQ = 64;           // fp32: query rows per block, one a thread
 constexpr int F32_BKV = 32;          // fp32: keys per shared-memory tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((ALIGN - (a & (ALIGN - 1))) & (ALIGN - 1));
-}
-
-// -- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the barrier's phase of this parity has completed; a wait of
-// more than about ten seconds traps, so that a fault shows as a launch
-// error rather than as a card that never finishes
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) break;
-    if (clock64() - t0 > 20000000000ll) __trap();
-  }
-}
-
-// one box of a 3-D tensor map {C, T, B} at (c, t, b) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c, int t, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c), "r"(t), "r"(b)
-      : "memory");
-}
-
-// -- warpgroups ---------------------------------------------------------------
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma's registers
-// across the issue and the wait
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 in bits 62-63
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// A or B K-major (q, k): rows of 128 bytes, 8-row groups 1024 bytes apart;
-// k-step kk of 16 elements starts 32 bytes further in the row
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return sw128_desc(tile + 32 * kk, 0, 1024);
-}
 
 // B MN-major (v as [key][dh]): k-step kk of 16 keys starts 16 rows further;
 // the 64 dh columns are one 128-byte row, 8-key groups 1024 bytes apart
@@ -343,10 +225,10 @@ attention_short_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&bars[0], Q_BYTES + npad * ROW_BYTES);
-    tma_load(sq, &tm_q, &bars[0], h * DH, q0, b);
-    tma_load(sk, &tm_k, &bars[0], h * DH, 0, b);
+    tma_load_3d(sq, &tm_q, &bars[0], h * DH, q0, b);
+    tma_load_3d(sk, &tm_k, &bars[0], h * DH, 0, b);
     mbar_expect_tx(&bars[1], npad * ROW_BYTES);
-    tma_load(sv, &tm_v, &bars[1], h * DH, 0, b);
+    tma_load_3d(sv, &tm_v, &bars[1], h * DH, 0, b);
   }
 
   // s = q k^T: 16 keys a wgmma (measured faster here than 64 a wgmma for
@@ -484,7 +366,7 @@ __device__ __forceinline__ void pack_tile(uint32_t* p, const float* s) {
 
 constexpr int NCONS = 2;  // consumer warpgroups a block: 128 query rows
 constexpr int ST = 2;     // ring stages of K and of V
-constexpr int LONG_SMEM = ALIGN + NCONS * Q_BYTES + 2 * ST * KV_BYTES;
+constexpr int LONG_SMEM = SWIZZLE_ALIGN + NCONS * Q_BYTES + 2 * ST * KV_BYTES;
 
 // NCONS consumer warpgroups of QT query rows each, after one producer
 // warpgroup (warp 0 of it issues every TMA load); one block an SM,
@@ -527,16 +409,16 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       mbar_expect_tx(q_full, NCONS * Q_BYTES);
       for (int c = 0; c < NCONS; ++c)
-        tma_load(sq + c * Q_BYTES, &tm_q, q_full, h * DH, q0 + c * QT, b);
+        tma_load_3d(sq + c * Q_BYTES, &tm_q, q_full, h * DH, q0 + c * QT, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % ST;
         const uint32_t ph = (j / ST) & 1;
         mbar_wait(&k_empty[st], ph ^ 1);
         mbar_expect_tx(&k_full[st], KV_BYTES);
-        tma_load(sk + st * KV_BYTES, &tm_k, &k_full[st], h * DH, j * KT, b);
+        tma_load_3d(sk + st * KV_BYTES, &tm_k, &k_full[st], h * DH, j * KT, b);
         mbar_wait(&v_empty[st], ph ^ 1);
         mbar_expect_tx(&v_full[st], KV_BYTES);
-        tma_load(sv + st * KV_BYTES, &tm_v, &v_full[st], h * DH, j * KT, b);
+        tma_load_3d(sv + st * KV_BYTES, &tm_v, &v_full[st], h * DH, j * KT, b);
       }
     }
   } else {
@@ -694,80 +576,37 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
-// that the library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // a bf16 [B, T, C] tensor as the 3-D map {C, T, B}, box {64, rows, 1},
 // 128-byte swizzle; boxes past T or B read zeros
-CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int B, int T, int C,
-                  int rows) {
+int make_qkv_map(CUtensorMap* map, const void* ptr, int B, int T, int C, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
   const cuuint32_t box[3] = {(cuuint32_t)DH, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int MAX_DEVICES = 64;
-
-// dynamic shared memory above 48 KB, once a process and device for each kernel
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool* done, int dev) {
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box);
 }
 
 int bf16_launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tkv,
                 int H, cudaStream_t stream) {
   static bool smem_set[2][MAX_DEVICES] = {};
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   const int C = H * DH;
   const bool short_form = Tkv <= SHORT_KV;
   const int npad = (Tkv + 15) / 16 * 16;
   CUtensorMap tq, tk, tv;
-  CUresult res = make_map(encode, &tq, q, B, Tq, C, QT);
-  if (res == CUDA_SUCCESS) res = make_map(encode, &tk, k, B, Tkv, C, short_form ? npad : KT);
-  if (res == CUDA_SUCCESS) res = make_map(encode, &tv, v, B, Tkv, C, short_form ? npad : KT);
-  if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);  // a CUresult, offset
+  int res = make_qkv_map(&tq, q, B, Tq, C, QT);
+  if (res == 0) res = make_qkv_map(&tk, k, B, Tkv, C, short_form ? npad : KT);
+  if (res == 0) res = make_qkv_map(&tv, v, B, Tkv, C, short_form ? npad : KT);
+  if (res != 0) return res;
+  cudaError_t err;
   bf16* o = static_cast<bf16*>(out);
   if (short_form) {
-    const int smem = ALIGN + Q_BYTES + 2 * npad * ROW_BYTES;
-    err = allow_smem(attention_short_kernel, ALIGN + Q_BYTES + 2 * SHORT_KV * ROW_BYTES,
-                     smem_set[0], dev);
+    const int smem = SWIZZLE_ALIGN + Q_BYTES + 2 * npad * ROW_BYTES;
+    err = allow_smem(attention_short_kernel, SWIZZLE_ALIGN + Q_BYTES + 2 * SHORT_KV * ROW_BYTES,
+                     smem_set[0]);
     if (err != cudaSuccess) return err;
     dim3 grid((Tq + QT - 1) / QT, H, B);
     attention_short_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, o, Tq, Tkv, C, npad);
   } else {
-    err = allow_smem(attention_long_kernel, LONG_SMEM, smem_set[1], dev);
+    err = allow_smem(attention_long_kernel, LONG_SMEM, smem_set[1]);
     if (err != cudaSuccess) return err;
     dim3 grid((Tq + NCONS * QT - 1) / (NCONS * QT), H, B);
     attention_long_kernel<<<grid, 128 * (NCONS + 1), LONG_SMEM, stream>>>(tq, tk, tv, o, Tq, Tkv,

@@ -12,7 +12,8 @@ bias and norm.
 
 The CUDA kernel takes C = 512 (XLS-R's width) in bf16 or fp32 and tiles
 time on its own terms; ``frames_per_tile`` only keeps the reference's
-check.  The wrapper takes the plain version for a tensor on the CPU, and
+check; ``level_pitches`` gives the bf16 route's padded levels.  The
+wrapper takes the plain version for a tensor on the CPU, and
 launches the kernel for a CUDA tensor or raises; there is no fallback.
 ``frontend_tail_fused.launches`` counts calls that launched.
 ``tail_lengths``, ``required_input``, ``choose_tile`` and
@@ -94,6 +95,16 @@ def choose_tile(
     return None if best is None else best[1]
 
 
+def level_pitches(n0: int, specs: Sequence[Spec]) -> List[int]:
+    """Frames stored per utterance at every level on the bf16 route.  A
+    level that feeds a conv of stride s is padded to a multiple of s, so
+    that the kernel reads it as rows of s frames; the last is not padded.
+    The pad frames are never written; they are read only for output rows
+    past the level's end, which are not stored."""
+    ns = tail_lengths(n0, specs)
+    return [-(-n // s) * s for n, (_, s) in zip(ns, specs)] + [ns[-1]]
+
+
 def fp32_layer_norm(xf: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     """flax ``nn.LayerNorm`` fast-variance math over the trailing axis
     (E[x^2] - E[x]^2 clamped at 0), on fp32 input."""
@@ -140,8 +151,9 @@ def _entry(name: str, argtypes):
 
 
 def _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps):
-    """One LN0 + GELU0 launch that reads ``h0`` through its strides and
-    writes contiguous [B, N0, C], then one launch per tail layer."""
+    """One LN0 + GELU0 launch that reads ``h0`` through its strides, then
+    one launch per tail layer; at bf16 the levels between are stored with
+    ``level_pitches`` frames an utterance."""
     dev, cdt = h0.device, h0.dtype
     B, n0, c = h0.shape
     if c != CHANNELS:
@@ -163,29 +175,33 @@ def _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gel
         if w.device != dev or tuple(w.shape) != (k, c, c):
             raise ValueError(f"a tail weight is {tuple(w.shape)} on {w.device}, "
                              f"expected {(k, c, c)} on {dev}")
-        w = w.to(cdt).contiguous()  # [k*C, C] rows: (tap, in channel)
+        # bf16: W^T [C, k*C] (columns: tap, in channel), K-major for wgmma;
+        # fp32: WIO [k*C, C]
+        w = w.to(cdt).permute(2, 0, 1) if cdt == torch.bfloat16 else w.to(cdt)
+        w = w.contiguous()
         if w.data_ptr() % 16:
             raise ValueError("a tail weight must be 16-byte aligned")
         ws.append(w)
 
-    ln0 = _entry("frontend_ln0_launch", [_P, _P, _I, _I, _L, _L, _L, _P, _P, _F, _I, _I, _P])
-    conv = _entry("frontend_conv_launch",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P])
+    ln0 = _entry("frontend_ln0_launch",
+                 [_P, _P, _I, _I, _I, _L, _L, _L, _P, _P, _F, _I, _I, _P])
+    conv = _entry("frontend_conv_launch", [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P])
     is_bf16 = int(cdt == torch.bfloat16)
+    lengths = tail_lengths(n0, specs)
+    pitches = level_pitches(n0, specs) if is_bf16 else lengths
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        h = torch.empty(B, n0, c, device=dev, dtype=cdt)
+        h = torch.empty(B, pitches[0], c, device=dev, dtype=cdt)
         sb, sn, sc = h0.stride()
-        build.check(ln0(h0.data_ptr(), h.data_ptr(), B, n0, sb, sn, sc, scale.data_ptr(),
-                        shift.data_ptr(), eps, int(approx_gelu), is_bf16, stream),
-                    "frontend_ln0")
+        build.check(ln0(h0.data_ptr(), h.data_ptr(), B, n0, pitches[0], sb, sn, sc,
+                        scale.data_ptr(), shift.data_ptr(), eps, int(approx_gelu), is_bf16,
+                        stream), "frontend_ln0")
         for i, ((k, s), w) in enumerate(zip(specs, ws)):
-            n_in = h.shape[1]
-            n_out = (n_in - k) // s + 1
-            out = torch.empty(B, n_out, c, device=dev, dtype=cdt)
+            out = torch.empty(B, pitches[i + 1], c, device=dev, dtype=cdt)
             build.check(conv(h.data_ptr(), w.data_ptr(), bias[i].data_ptr(),
                              scale[i + 1].data_ptr(), shift[i + 1].data_ptr(), out.data_ptr(),
-                             B, n_in, n_out, k, s, eps, int(approx_gelu), is_bf16, stream),
+                             B, lengths[i], pitches[i], lengths[i + 1], pitches[i + 1], k, s,
+                             eps, int(approx_gelu), is_bf16, stream),
                         f"frontend_conv layer {i + 1}")
             h = out
     return h

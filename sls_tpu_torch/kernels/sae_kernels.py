@@ -7,7 +7,9 @@ is ported (forward only; the backward passes are plain matmuls):
   bf16 operands and fp32 accumulation, then the exact row top-k mask
   (every entry >= the row's k-th value), ``csrc/sae_encode_topk.cu``;
 - ``sae_encode_fused``: the same encode with fp32 operands and no top-k,
-  ``csrc/sae_encode.cu``;
+  ``csrc/sae_encode.cu`` (fp32-accurate "3xTF32" on the tensor cores;
+  ``sae_encode_fused_split_emulated`` repeats its operand split on the
+  CPU for the tests);
 - ``topk_sparsify``: the exact row top-k mask alone, a second entry of
   ``csrc/sae_encode_topk.cu``;
 - ``window_vote_fused``: the overlap-window vote merge in bf16,
@@ -101,6 +103,33 @@ def sae_encode_fused_plain(x, w_enc, b_enc, b_dec) -> torch.Tensor:
     return torch.relu(acc + b_enc.float())
 
 
+def tf32_round_rna(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32's 10 stored mantissa bits, to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``: add half a TF32 ulp
+    to the magnitude bits and clear the 13 low bits (a carry runs into the
+    exponent; subnormals round the same way).  NaN stays NaN."""
+    bits = t.float().contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(t), t.float(), out)
+
+
+def sae_encode_fused_split_emulated(x, w_enc, b_enc, b_dec) -> torch.Tensor:
+    """The CUDA kernel's operand split on the CPU (tests only): the fp32
+    centred x and W_enc each as hi + lo TF32 values, and the three
+    products lo.hi + hi.lo + hi.hi taken in fp64 and rounded once to fp32
+    (the kernel sums them in fp32, in its own order); bias and ReLU in
+    fp32."""
+    def split(a):
+        hi = tf32_round_rna(a)
+        return hi, tf32_round_rna(a - hi)
+
+    x_hi, x_lo = split(x.float() - b_dec.float())
+    w_hi, w_lo = split(w_enc.float())
+    d = torch.float64
+    acc = x_lo.to(d) @ w_hi.to(d) + x_hi.to(d) @ w_lo.to(d) + x_hi.to(d) @ w_hi.to(d)
+    return torch.relu(acc.float() + b_enc.float())
+
+
 def _window_geometry(T: int, window: int):
     """(stride, num_windows, n_chunks) of the vote kernel; even windows
     only (two stride-chunks a window)."""
@@ -191,7 +220,8 @@ sae_encode_topk_fused.launches = 0
 
 def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
     """relu((x - b_dec) @ w_enc + b_enc) in fp32, x [N, D] -> [N, M].
-    CUDA: D % 16 == 0, M % 128 == 0, fp32 contiguous operands."""
+    CUDA: D % 32 == 0, M % 128 == 0, fp32 contiguous operands; the
+    kernel's split operands take 2 (N + M) D fp32 of scratch a call."""
     if x.device.type == "cpu":
         return sae_encode_fused_plain(x, w_enc, b_enc, b_dec)
     if x.device.type != "cuda":
@@ -201,16 +231,17 @@ def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
     for t, name, shape in ((x, "x", (n, d)), (w_enc, "w_enc", (d, m)),
                            (b_enc, "b_enc", (m,)), (b_dec, "b_dec", (d,))):
         _check_operand(t, name, shape, x.device)
-    if d % 16 or m % 128:
-        raise ValueError(f"need D % 16 == 0 and M % 128 == 0, got D={d}, M={m}")
+    if d % 32 or m % 128:
+        raise ValueError(f"need D % 32 == 0 and M % 128 == 0, got D={d}, M={m}")
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    fn = _lib("sae_encode", "sae_encode_launch", [_P] * 5 + [_I] * 3 + [_P])
+    scratch = torch.empty(2 * (n + m) * d, dtype=torch.float32, device=x.device)
+    fn = _lib("sae_encode", "sae_encode_launch", [_P] * 6 + [_I] * 3 + [_P])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), b_dec.data_ptr(),
-                 out.data_ptr(), n, d, m, stream)
+                 out.data_ptr(), scratch.data_ptr(), n, d, m, stream)
     build.check(err, "sae_encode")
     sae_encode_fused.launches += 1
     return out

@@ -125,6 +125,24 @@ def test_tiling_helpers_match_jax(case, jf):
         assert f is not None
 
 
+@pytest.mark.parametrize("case", [c for c in HELPER_CASES if HELPER_CASES[c][2] == 512])
+def test_level_pitches_cover_what_each_layer_reads(case):
+    """The bf16 kernel stores each level with a pitch that is a multiple of
+    the next conv's stride and reads it as rows of s frames: every frame a
+    stored output reads lies inside the level, and inside its rows."""
+    n0, specs, _ = HELPER_CASES[case]
+    lengths = tf.tail_lengths(n0, specs)
+    pitches = tf.level_pitches(n0, specs)
+    assert len(pitches) == len(lengths) and pitches[-1] == lengths[-1]
+    for (k, s), n_in, n_out, pitch in zip(specs, lengths, lengths[1:], pitches):
+        assert n_in <= pitch < n_in + s and pitch % s == 0
+        # output frame n_out - 1 reads frames s (n_out - 1) .. s (n_out - 1) + k - 1,
+        # rows n_out - 1 .. n_out - 1 + (k - 1) // s of the grouped view
+        assert s * (n_out - 1) + k <= n_in
+        assert n_out - 1 + (k - 1) // s < pitch // s
+    assert tf.required_input(lengths[-1], specs) <= n0
+
+
 # -- (b, c) the plain version against the Pallas kernel -----------------------
 
 
@@ -380,6 +398,55 @@ def test_kernel_matches_plain(cuda, dtype, layout, samples):
         assert float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)) <= (
             KERNEL_ENVELOPE * envelope)
         assert float((out - ref).abs().max()) <= KERNEL_REL_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "channels_first_view"])
+@pytest.mark.parametrize("batch,n0", [(36, 12919), (2, 12000), (1, 327698)],
+                         ids=["B36_T201", "B2_T187", "B1_T5120"])
+def test_kernel_matches_plain_at_path_shapes(cuda, batch, n0, layout):
+    """bf16 at the fused front-end path's batch, a length whose levels all
+    end in partial 64-frame tiles, and one T 5120 utterance (the fused
+    route's long forward), on h0 as the encoder's conv 0 leaves it (each
+    frame's channels contiguous: the LN0 pass on rows) and on a
+    channels-first view (the tiled LN0 pass); the first utterances held as
+    test_kernel_matches_plain holds them."""
+    g = torch.Generator(device=cuda).manual_seed(n0)
+    h0 = torch.randn(batch, 512, n0, device=cuda, generator=g).to(torch.bfloat16).transpose(1, 2)
+    if layout == "rows":
+        h0 = h0.contiguous()
+    ws = tuple(torch.randn(k, 512, 512, device=cuda, generator=g) * (k * 512) ** -0.5
+               for k, _ in XLSR_SPECS)
+    bias = torch.randn(len(XLSR_SPECS), 512, device=cuda, generator=g) * 0.1
+    scale = 1 + 0.1 * torch.randn(len(XLSR_SPECS) + 1, 512, device=cuda, generator=g)
+    shift = 0.1 * torch.randn(len(XLSR_SPECS) + 1, 512, device=cuda, generator=g)
+    kw = dict(specs=XLSR_SPECS, approx_gelu=True)
+    out = tf.frontend_tail_fused(h0, ws, bias, scale, shift, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, tf.tail_lengths(n0, XLSR_SPECS)[-1], 512)
+    assert bool(torch.isfinite(out.float()).all())
+    few = min(batch, 2)
+    out = out[:few].float()
+    ref = tf.frontend_tail_fused_plain(h0[:few], ws, bias, scale, shift, **kw).float()
+    ref64 = tf.frontend_tail_fused_plain(h0[:few], ws, bias, scale, shift, **kw,
+                                         sum_dtype=torch.float64).float()
+    envelope = float(torch.linalg.vector_norm(ref64 - ref) / torch.linalg.vector_norm(ref))
+    assert 0 < envelope < 1e-2
+    assert float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)) <= (
+        KERNEL_ENVELOPE * envelope)
+    assert float((out - ref).abs().max()) <= KERNEL_REL_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_encoder_level0_takes_the_rows_pass(cuda):
+    """Conv 0 as the encoder runs it leaves each frame's 512 channels
+    contiguous, the layout the LN0 pass reads with 16-byte rows."""
+    from sls_tpu_torch.encoder.xlsr import ConvFeatureExtractor
+
+    fe = ConvFeatureExtractor(tcfg.XLSRConfig(dtype=torch.bfloat16), cuda)
+    with torch.inference_mode():
+        h0 = fe.level0(torch.randn(3, 16160, device=cuda))
+    assert h0.shape[2] == 512 and h0.stride(2) == 1 and h0.stride(1) == 512
 
 
 @pytest.mark.cuda
