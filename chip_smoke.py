@@ -20,11 +20,12 @@ Phases:
      time without the host's launch cost); the fp32 encode (3xTF32) also
      against an fp64 product, within 1.5x of the plain version's error
      (also at N 1, 68, 127 over several draws), with its split pass and
-     GEMM timed apart, and the front-end tail's LN0 pass timed alone on
+     GEMM timed apart, the bf16 encode + top-k's cast pass, GEMM and
+     select timed apart, and the front-end tail's LN0 pass timed alone on
      the path's h0 and on a channels-first one; with ``--parent DIR``
      (``git archive <commit> sls_tpu_torch | tar -x -C DIR``) that
-     commit's wrappers of rows 3 and 8, with its kernels built from DIR,
-     timed beside them (old, new, new, old);
+     commit's wrappers of rows 1-4 and 8, with its kernels built from
+     DIR, timed beside them (old, new, new, old);
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -167,9 +168,10 @@ def path_kernels(layers: int) -> dict:
 
 
 # the hand-written kernels' names as the profiler shows them
-OWN_KERNELS = ("encode_gemm_kernel", "topk_select_kernel", "split_x_kernel", "split_w_kernel",
+OWN_KERNELS = ("cast_x_bf16_kernel", "cast_w_bf16_kernel", "encode_bf16_wgmma_kernel",
+               "topk_radix_select_kernel", "split_x_kernel", "split_w_kernel",
                "encode_tf32x3_kernel", "window_mask_kernel", "frame_vote_kernel",
-               "decode_kernel", "attention_short_kernel", "attention_long_kernel",
+               "decode_stream_kernel", "attention_short_kernel", "attention_long_kernel",
                "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
                "frontend_conv_wgmma_kernel")
 ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
@@ -266,13 +268,28 @@ def alternate(torch, new, old, device, iters) -> dict:
             "parent_alternation_ms": runs}
 
 
+def time_row(torch, row, new, old, device, iters) -> None:
+    """``row["ms"]`` of ``new``, or with a parent wrapper ``old`` both in
+    turns (old, new, new, old)."""
+    if old is None:
+        row["ms"] = timed(torch, new, device, iters)
+    else:
+        row.update(alternate(torch, new, old, device, iters))
+
+
+def parent_wrapper(parent, module: str, name: str):
+    """The parent's wrapper ``name`` of ``module``, or None without one."""
+    return None if parent is None else getattr(parent[module], name)
+
+
 def load_parent(root):
-    """The parent commit's wrappers of rows 3 and 8 (``sae_encode_fused``,
-    ``frontend_tail_fused``), imported from ``root``, a ``git archive`` of
-    that commit's ``sls_tpu_torch/``, to be timed beside the kernels that
-    replace them (``--parent``).  They build that commit's sources into
-    ``root/build/`` at first use.  The port's own modules are set aside
-    while the parent's import and put back after."""
+    """The parent commit's kernel wrapper modules, ``sae_kernels`` and
+    ``frontend``, imported from ``root``, a ``git archive`` of that
+    commit's ``sls_tpu_torch/``, so that phase 2 can time any row's
+    wrapper beside the kernel that replaces it (``--parent``).  They
+    build that commit's sources into ``root/build/`` at first use.  The
+    port's own modules are set aside while the parent's import and put
+    back after."""
     import importlib
 
     root = Path(root).resolve()
@@ -292,8 +309,7 @@ def load_parent(root):
         for name in [name for name in sys.modules if ours(name)]:
             del sys.modules[name]
         sys.modules.update(saved)
-    return {"sae_encode_fused": tk.sae_encode_fused,
-            "frontend_tail_fused": tf.frontend_tail_fused}
+    return {"sae_kernels": tk, "frontend": tf}
 
 
 def encode_f64_sweep(torch, tk, device, d, m) -> float:
@@ -362,13 +378,24 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
         "source": "sls_tpu_torch/kernels/csrc/sae_encode_topk.cu",
         "replaces": "sls_tpu/kernels/sae_kernels.py:143",
         "max_abs_err": err1, "tolerance": ENCODE_TOL,
-        "ms": timed(torch, lambda: tk.sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k),
-                    device, iters),
         "plain_ms": timed(torch, lambda: tk.sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k),
                           device, max(iters // 4, 1)),
         "library_ms": timed(torch, library_encode, device, iters),
         "bound_ms": bound1, "bound_by": by1, "ops": ops1, "bytes": bytes1,
     }
+    new1 = lambda: tk.sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k)  # noqa: E731
+    old1 = parent_wrapper(parent, "sae_kernels", "sae_encode_topk_fused")
+    time_row(torch, enc, new1, old1 and (lambda: old1(x, w_enc, b_enc, b_dec, k)), device, iters)
+    if device.type == "cuda":
+        # the cast pass, the GEMM and the select apart, from the profiler
+        by_name = device_time_by_kernel(new1, reps=iters)["by_name_ms"]
+        for key, part in (("cast_ms", "cast_"), ("gemm_ms", "encode_bf16_wgmma"),
+                          ("select_ms", "topk_radix_select")):
+            enc[key] = sum(ms for name, ms in by_name.items() if part in name)
+    log(f"encode_topk: {enc['ms']:.4f} ms (cast pass {enc.get('cast_ms')}, GEMM "
+        f"{enc.get('gemm_ms')}, select {enc.get('select_ms')}), library {enc['library_ms']:.4f} "
+        f"ms, bound {bound1:.4f} ms ({by1}); the parent's kernel {enc.get('parent_ms')} ms "
+        f"(old, new, new, old: {enc.get('parent_alternation_ms')})")
 
     # kernel 2: decode of the plain version's codes
     recon = tk.sae_decode_fused(ref, w_dec, b_dec)
@@ -386,12 +413,29 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
         "source": "sls_tpu_torch/kernels/csrc/sae_decode.cu",
         "replaces": "sls_tpu/kernels/sae_kernels.py:440",
         "max_abs_err": err2, "tolerance": DECODE_TOL,
-        "ms": timed(torch, lambda: tk.sae_decode_fused(ref, w_dec, b_dec), device, iters),
         "plain_ms": timed(torch, lambda: tk.sae_decode_fused_plain(ref, w_dec, b_dec),
                           device, iters),
         "library_ms": timed(torch, lambda: torch.addmm(b_dec, ref, w_dec), device, iters),
         "bound_ms": bound2, "bound_by": by2, "ops": ops2, "bytes": bytes2, "nnz": nnz,
     }
+    old2 = parent_wrapper(parent, "sae_kernels", "sae_decode_fused")
+    time_row(torch, dec, lambda: tk.sae_decode_fused(ref, w_dec, b_dec),
+             old2 and (lambda: old2(ref, w_dec, b_dec)), device, iters)
+    # bytes from L2, computed from the two designs (not measured): the
+    # gather form (a block a row) read each row's codes and gathered each
+    # selected W_dec row; the streamed form reads, per block of a row tile
+    # and a column slice, every window's codes tile and (a cluster sharing
+    # it) its part of W_dec
+    rows_, cols_, win = tk.DECODE_TILE_ROWS, tk.DECODE_TILE_COLS, tk.DECODE_WINDOW
+    row_tiles = -(-n // rows_)
+    row_tiles = -(-row_tiles // tk.DECODE_CLUSTER) * tk.DECODE_CLUSTER
+    blocks = row_tiles * -(-d // cols_) * -(-m // win)
+    l2_gathered = f32 * (n * m + nnz * d)
+    l2_streamed = f32 * blocks * (rows_ * win + win * cols_ / tk.DECODE_CLUSTER)
+    log(f"decode: {dec['ms']:.4f} ms, addmm {dec['library_ms']:.4f} ms, bound {bound2:.4f} ms "
+        f"({by2}); L2 bytes of the gather form {l2_gathered / 1e9:.3f} GB, streamed "
+        f"now {l2_streamed / 1e9:.3f} GB (computed); the parent's kernel "
+        f"{dec.get('parent_ms')} ms (old, new, new, old: {dec.get('parent_alternation_ms')})")
 
     # kernel 3: fp32 encode, no top-k
     acts32 = tk.sae_encode_fused(x, w_enc, b_enc, b_dec)
@@ -425,11 +469,8 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
         "bound_ms": bound3, "bound_by": f"{by3}, 3xTF32", "ops": ops3, "bytes": bytes1,
     }
     new3 = lambda: tk.sae_encode_fused(x, w_enc, b_enc, b_dec)  # noqa: E731
-    if parent is None:
-        enc32["ms"] = timed(torch, new3, device, iters)
-    else:
-        enc32.update(alternate(torch, new3, lambda: parent["sae_encode_fused"](
-            x, w_enc, b_enc, b_dec), device, iters))
+    old3 = parent_wrapper(parent, "sae_kernels", "sae_encode_fused")
+    time_row(torch, enc32, new3, old3 and (lambda: old3(x, w_enc, b_enc, b_dec)), device, iters)
     if device.type == "cuda":
         # the split pass and the GEMM apart, from the profiler's device times
         by_name = device_time_by_kernel(new3, reps=iters)["by_name_ms"]
@@ -456,7 +497,8 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
         t = torch.topk(acts_ref, k, dim=-1).values[:, -1:]
         return torch.where(acts_ref >= t, acts_ref, 0.0)
 
-    ops4 = 2.0 * 31 * n * m  # 31 compare-and-count passes over the rows
+    # a compare-and-count over the rows for each radix pass
+    ops4 = 2.0 * len(tk.RADIX_PASSES) * n * m
     bytes4 = f32 * 2 * n * m
     bound4, by4 = bound(bytes4, ops4, PEAK_FP32_FLOPS)
     topk = {
@@ -464,12 +506,17 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
         "source": "sls_tpu_torch/kernels/csrc/sae_encode_topk.cu",
         "replaces": "sls_tpu/kernels/sae_kernels.py:232",
         "max_abs_err": err4, "tolerance": TOPK_TOL,
-        "ms": timed(torch, lambda: tk.topk_sparsify(acts_ref, k), device, iters),
         "plain_ms": timed(torch, lambda: tk.topk_threshold_mask_plain(acts_ref, k),
                           device, max(iters // 4, 1)),
         "library_ms": timed(torch, library_topk, device, iters),
         "bound_ms": bound4, "bound_by": by4, "ops": ops4, "bytes": bytes4,
     }
+    old4 = parent_wrapper(parent, "sae_kernels", "topk_sparsify")
+    time_row(torch, topk, lambda: tk.topk_sparsify(acts_ref, k),
+             old4 and (lambda: old4(acts_ref, k)), device, iters)
+    log(f"topk_sparsify: {topk['ms']:.4f} ms, library {topk['library_ms']:.4f} ms, bound "
+        f"{bound4:.4f} ms ({by4}); the parent's kernel {topk.get('parent_ms')} ms (old, new, "
+        f"new, old: {topk.get('parent_alternation_ms')})")
 
     # kernel 5: the vote merge of the plain fp32 encode's activations
     acts3 = acts_ref.reshape(batch, frames, m)
@@ -714,12 +761,9 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters, parent=None):
             "unfused_route_ms": timed(torch, lambda: fe.tail(h0), device, iters),
             "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
         }
-        new = lambda: tf.frontend_tail_fused(h0, *args, **kw)  # noqa: E731
-        if parent is None:
-            row["ms"] = timed(torch, new, device, iters)
-        else:
-            row.update(alternate(torch, new, lambda: parent["frontend_tail_fused"](
-                h0, *args, **kw), device, iters))
+        old = parent_wrapper(parent, "frontend", "frontend_tail_fused")
+        time_row(torch, row, lambda: tf.frontend_tail_fused(h0, *args, **kw),
+                 old and (lambda: old(h0, *args, **kw)), device, iters)
         if device.type == "cuda":
             # its LN0 pass on the path's h0, and on a channels-first copy
             # (frames unit-stride), which takes the other LN0 kernel
@@ -864,7 +908,7 @@ def main(argv=None) -> int:
                     help="also print each path's eval-step device time by kernel")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
-                         "parent's): phase 2 times its wrappers of rows 3 and 8 beside "
+                         "parent's): phase 2 times its wrappers of rows 1-4 and 8 beside "
                          "this tree's")
     args = ap.parse_args(argv)
 
@@ -1470,7 +1514,8 @@ def main(argv=None) -> int:
         "exp_floor_ms", "emulation_max_abs_err",
         "elements_beyond_one_bf16_ulp_vs_emulation", "cases", "unfused_route_ms", "rel_l2_vs_plain",
         "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal", "rel_l2_vs_fp64",
-        "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "gemm_ms", "ln0_ms",
+        "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "cast_ms", "gemm_ms",
+        "select_ms", "ln0_ms",
         "ln0_channels_first_ms", "parent_ms",
         "parent_alternation_ms") if key in row}
         for row in rows]

@@ -5,7 +5,9 @@ is ported (forward only; the backward passes are plain matmuls):
 
 - ``sae_encode_topk_fused``: ``relu((x - b_dec) @ W_enc + b_enc)`` with
   bf16 operands and fp32 accumulation, then the exact row top-k mask
-  (every entry >= the row's k-th value), ``csrc/sae_encode_topk.cu``;
+  (every entry >= the row's k-th value), ``csrc/sae_encode_topk.cu`` (a
+  cast pass, a bf16 ``wgmma`` GEMM and a radix select, which
+  ``topk_threshold_radix_emulated`` repeats on the CPU for the tests);
 - ``sae_encode_fused``: the same encode with fp32 operands and no top-k,
   ``csrc/sae_encode.cu`` (fp32-accurate "3xTF32" on the tensor cores;
   ``sae_encode_fused_split_emulated`` repeats its operand split on the
@@ -15,7 +17,9 @@ is ported (forward only; the backward passes are plain matmuls):
 - ``window_vote_fused``: the overlap-window vote merge in bf16,
   ``csrc/window_vote.cu``;
 - ``sae_decode_fused``: ``codes @ W_dec + b_dec`` in fp32,
-  ``csrc/sae_decode.cu``.
+  ``csrc/sae_decode.cu`` (W_dec streamed once per row tile;
+  ``sae_decode_streamed_emulated`` walks its tiles and windows on the
+  CPU for the tests).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, beside it)
 for a tensor on the CPU, and launches its kernel for a CUDA tensor or
@@ -34,6 +38,13 @@ from sls_tpu_torch.sae.sparsify import _overlap_geometry
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# the radix select's digits, high to low, over the 31 bits of a positive
+# fp32 pattern: (shift, width) of each pass (csrc/sae_encode_topk.cu)
+RADIX_PASSES = ((23, 8), (15, 8), (7, 8), (0, 7))
+# the decode kernel's tiling (csrc/sae_decode.cu): rows and columns of out
+# a block, atoms a window, and row tiles a cluster sharing W_dec's windows
+DECODE_TILE_ROWS, DECODE_TILE_COLS, DECODE_WINDOW, DECODE_CLUSTER = 128, 256, 32, 2
 
 
 def _lib(name: str, entry: str, argtypes):
@@ -62,7 +73,8 @@ def _check_operand(t: torch.Tensor, name: str, shape, device) -> None:
 def topk_threshold_mask_plain(acts: torch.Tensor, k: int) -> torch.Tensor:
     """Row-wise exact top-k ``>=``-threshold mask of non-negative fp32
     rows: the TPU kernel's 31-step binary search on the int32 bit
-    pattern (``_topk_threshold_mask``), which the CUDA select repeats."""
+    pattern (``_topk_threshold_mask``).  The CUDA select finds the same
+    threshold by a radix search (``topk_threshold_radix_emulated``)."""
     acts = acts.contiguous()
     bits = acts.view(torch.int32)
     lo = torch.zeros(acts.shape[:-1] + (1,), dtype=torch.int32, device=acts.device)
@@ -72,6 +84,38 @@ def topk_threshold_mask_plain(acts: torch.Tensor, k: int) -> torch.Tensor:
         keep = (bits >= mid).sum(-1, keepdim=True) >= k
         lo = torch.where(keep, mid, lo)
         hi = torch.where(keep, hi, mid)
+    return torch.where(bits >= lo, acts, 0.0)
+
+
+def topk_threshold_radix_emulated(acts: torch.Tensor, k: int) -> torch.Tensor:
+    """The CUDA select's radix search on the CPU (tests only): the same
+    mask as ``topk_threshold_mask_plain``, found as the kernel finds it.
+    Only positive patterns are candidates; a row with fewer than k of
+    them ends at lo = 0.  Each pass histograms the candidates' next digit
+    (``RADIX_PASSES``), takes the bin holding the remaining rank counted
+    from the top, and keeps the candidates in it; after the last pass
+    the prefix is b_k, the k-th largest positive pattern, and lo =
+    min(b_k, 0x7F7FFFFF), where the binary search over [0, 0x7F800000)
+    stops."""
+    acts = acts.contiguous()
+    bits = acts.view(torch.int32)
+    flat = bits.reshape(-1, bits.shape[-1]).long()
+    cand = flat > 0
+    short = cand.sum(-1) < k
+    prefix = torch.zeros(flat.shape[0], dtype=torch.long, device=flat.device)
+    rank = torch.full_like(prefix, k)
+    for shift, width in RADIX_PASSES:
+        digit = (flat >> shift) & ((1 << width) - 1)
+        hist = torch.zeros(flat.shape[0], 256, dtype=torch.long, device=flat.device)
+        hist.scatter_add_(1, torch.where(cand, digit, 0), cand.long())
+        at_or_above = hist.flip(-1).cumsum(-1).flip(-1)  # candidates in bins >= d
+        above = at_or_above - hist
+        pick = ((above < rank[:, None]) & (at_or_above >= rank[:, None])).long().argmax(-1)
+        rank = rank - above.gather(1, pick[:, None])[:, 0]
+        prefix = prefix | (pick << shift)
+        cand = cand & (digit == pick[:, None])
+    lo = torch.where(short, 0, torch.clamp(prefix, max=0x7F7FFFFF)).to(torch.int32)
+    lo = lo.reshape(bits.shape[:-1] + (1,))
     return torch.where(bits >= lo, acts, 0.0)
 
 
@@ -94,6 +138,36 @@ def sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
 def sae_decode_fused_plain(codes, w_dec, b_dec) -> torch.Tensor:
     """Plain version of ``sae_decode_fused``: fp32 ``codes @ w_dec + b_dec``."""
     return codes.float() @ w_dec.float() + b_dec.float()
+
+
+def sae_decode_streamed_emulated(codes, w_dec, b_dec, tile_rows: int = DECODE_TILE_ROWS,
+                                 tile_cols: int = DECODE_TILE_COLS,
+                                 window: int = DECODE_WINDOW) -> torch.Tensor:
+    """The CUDA decode's walk on the CPU (tests only): row tiles of
+    ``tile_rows`` x ``tile_cols``, padded with zeros past N, D and M as
+    the kernel's TMA boxes read them, and W_dec in windows of ``window``
+    atoms; in each window every row adds its nonzero codes in ascending
+    atom order, one fp32 fused multiply-add a term (the product exact in
+    fp64, the sum rounded once to fp32), then b_dec."""
+    codes, w_dec, b_dec = codes.float(), w_dec.float(), b_dec.float()
+    n, m = codes.shape
+    d = w_dec.shape[1]
+    m_pad = -(-m // window) * window
+    c = torch.nn.functional.pad(codes, (0, m_pad - m, 0, -n % tile_rows))
+    w = torch.nn.functional.pad(w_dec, (0, -d % tile_cols, 0, m_pad - m))
+    out = torch.empty(c.shape[0], w.shape[1], device=c.device)
+    for r0 in range(0, c.shape[0], tile_rows):
+        for c0 in range(0, w.shape[1], tile_cols):
+            acc = torch.zeros(tile_rows, tile_cols, device=c.device)
+            for a0 in range(0, m_pad, window):
+                tile_c = c[r0:r0 + tile_rows, a0:a0 + window]
+                tile_w = w[a0:a0 + window, c0:c0 + tile_cols]
+                for a in range(window):
+                    code = tile_c[:, a:a + 1]
+                    fma = (code.double() * tile_w[a].double() + acc.double()).float()
+                    acc = torch.where(code != 0, fma, acc)
+            out[r0:r0 + tile_rows, c0:c0 + tile_cols] = acc
+    return out[:n, :d] + b_dec
 
 
 def sae_encode_fused_plain(x, w_enc, b_enc, b_dec) -> torch.Tensor:
@@ -186,7 +260,8 @@ def window_vote_fused_plain(acts: torch.Tensor, k: int, window: int) -> torch.Te
 def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
     """Sparse codes = topk_mask(relu((x - b_dec) @ w_enc + b_enc), k);
     x [N, D] -> [N, M] fp32.  CUDA: D % 32 == 0, M % 128 == 0, fp32
-    contiguous operands."""
+    contiguous operands; the cast pass takes (N + M) D bf16 of scratch a
+    call."""
     if x.device.type == "cpu":
         return sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k)
     if x.device.type != "cuda":
@@ -205,11 +280,13 @@ def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    fn = _lib("sae_encode_topk", "sae_encode_topk_launch", [_P] * 5 + [_I] * 4 + [_P])
+    # the cast pass's bf16 operands: centred x [N, D] and W_enc^T [M, D]
+    scratch = torch.empty((n + m) * d, dtype=torch.bfloat16, device=x.device)
+    fn = _lib("sae_encode_topk", "sae_encode_topk_launch", [_P] * 6 + [_I] * 4 + [_P])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), b_dec.data_ptr(),
-                 out.data_ptr(), n, d, m, k, stream)
+                 out.data_ptr(), scratch.data_ptr(), n, d, m, k, stream)
     build.check(err, "sae_encode_topk")
     sae_encode_topk_fused.launches += 1
     return out
@@ -314,7 +391,8 @@ window_vote_fused.launches = 0
 
 def sae_decode_fused(codes, w_dec, b_dec) -> torch.Tensor:
     """codes @ w_dec + b_dec for codes [N, M] -> [N, D], fp32.  CUDA:
-    D % 4 == 0, fp32 contiguous operands; zero codes are skipped."""
+    M % 4 == 0 and D % 4 == 0, fp32 contiguous operands; zero codes are
+    skipped."""
     if codes.device.type == "cpu":
         return sae_decode_fused_plain(codes, w_dec, b_dec)
     if codes.device.type != "cuda":
@@ -324,10 +402,8 @@ def sae_decode_fused(codes, w_dec, b_dec) -> torch.Tensor:
     for t, name, shape in ((codes, "codes", (n, m)), (w_dec, "w_dec", (m, d)),
                            (b_dec, "b_dec", (d,))):
         _check_operand(t, name, shape, codes.device)
-    if d % 4:
-        raise ValueError(f"need D % 4 == 0, got D={d}")
-    if m * 8 > 227 * 1024:
-        raise ValueError(f"M={m} codes exceed a block's shared memory")
+    if m % 4 or d % 4:
+        raise ValueError(f"need M % 4 == 0 and D % 4 == 0, got M={m}, D={d}")
     out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
     if n == 0:
         return out

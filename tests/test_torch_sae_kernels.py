@@ -195,3 +195,122 @@ def test_decode_kernel_matches_plain(cuda, shape):
     ref = tk.sae_decode_fused_plain(codes, w_dec, b_dec)
     # fp32 sums of ~k terms in another order
     assert torch.allclose(out, ref, atol=1e-4, rtol=1e-5)
+
+
+def _encode_inputs(cuda, n, d, m, seed=0, shift=0.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, device=cuda, generator=g)
+    w_enc = torch.randn(d, m, device=cuda, generator=g) * d ** -0.5
+    b_enc = torch.randn(m, device=cuda, generator=g) * 0.1 + shift
+    b_dec = torch.randn(d, device=cuda, generator=g) * 0.1
+    return x, w_enc, b_enc, b_dec
+
+
+def _assert_encode_matches(x, w_enc, b_enc, b_dec, k):
+    out = tk.sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k)
+    torch.cuda.synchronize()
+    acts = tk.sae_encode_acts_plain(x, w_enc, b_enc, b_dec)
+    ref = tk.topk_threshold_mask_plain(acts, k)
+    tol = 1e-3  # as test_encode_topk_kernel_matches_plain
+    kept, kept_ref = out > 0, ref > 0
+    both = kept & kept_ref
+    assert torch.allclose(out[both], ref[both], atol=tol, rtol=0)
+    kth = torch.where(kept_ref, acts, torch.inf).amin(-1, keepdim=True)
+    assert torch.all((acts - kth).abs()[kept ^ kept_ref] <= tol)
+    return out, acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 7237])
+def test_encode_topk_kernel_ragged_rows(cuda, n):
+    """Row counts around the 128-row tile and the two-tile cluster."""
+    _assert_encode_matches(*_encode_inputs(cuda, n, 1024, 4096, seed=n), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 512], ids=["k_one", "k_all"])
+def test_encode_topk_kernel_k_extremes(cuda, k):
+    out, acts = _assert_encode_matches(*_encode_inputs(cuda, 300, 128, 512, seed=k), k)
+    if k == 512:  # every entry is kept: the dense activations
+        assert torch.allclose(out, acts, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_encode_topk_kernel_fewer_than_k_positives(cuda):
+    """A bias far below zero leaves most rows with fewer than k positive
+    entries: those rows keep every positive entry."""
+    x, w_enc, b_enc, b_dec = _encode_inputs(cuda, 300, 128, 512, seed=7, shift=-3.5)
+    out, acts = _assert_encode_matches(x, w_enc, b_enc, b_dec, 64)
+    short = (acts > 0).sum(-1) < 64
+    assert bool(short.any())
+    assert torch.equal(out[short] > 0, acts[short] > 0)
+
+
+@pytest.mark.cuda
+def test_encode_topk_kernel_forced_ties(cuda):
+    """x = 0 and b_dec = 0 make every row the same relu(b_enc), whose
+    values repeat in blocks of eight: the k-th value is tied many times,
+    and every copy of it is kept."""
+    d, m, k = 128, 512, 20
+    x = torch.zeros(300, d, device=cuda)
+    w_enc = torch.randn(d, m, device=cuda)
+    b_enc = torch.arange(m // 8, device=cuda, dtype=torch.float32).repeat_interleave(8) / 8
+    out = tk.sae_encode_topk_fused(x, w_enc, b_enc, torch.zeros(d, device=cuda), k)
+    torch.cuda.synchronize()
+    ref = tk.topk_threshold_mask_plain(torch.relu(b_enc).expand(300, m).contiguous(), k)
+    assert torch.equal(out, ref)
+    assert int((out[0] > 0).sum()) == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "fewer_than_k", "specials", "k_one", "k_all"])
+def test_topk_sparsify_kernel_edge_rows(cuda, case):
+    """The radix select (topk_sparsify's entry) bit-equal to the plain
+    31-step search on the select's edge rows."""
+    rng = np.random.default_rng(9)
+    m, k = 4096, 128
+    acts = np.maximum(rng.normal(size=(129, m)), 0).astype(np.float32)
+    if case == "ties":
+        acts = np.round(acts * 4) / 4
+    elif case == "fewer_than_k":
+        acts[:, 100:] = 0.0
+        acts[::2] = -acts[::2]
+    elif case == "specials":
+        acts[0, :200] = np.float32(3.4028235e38)
+        acts[1, :50] = np.inf
+        acts[1, 50:60] = np.nan
+        acts[2] = np.float32(1e-41) * (acts[2] > 0)
+        acts[3, ::3] = -0.0
+    elif case == "k_one":
+        k = 1
+    else:
+        k = m
+    x = torch.from_numpy(acts).to(cuda)
+    out = tk.topk_sparsify(x, k)
+    torch.cuda.synchronize()
+    ref = tk.topk_threshold_mask_plain(x, k)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "zero_rows", "ragged"])
+def test_decode_kernel_edge_codes(cuda, case):
+    """Dense codes (all of M a row), all-zero rows, and N, M and D off
+    the kernel's tile, window and column slice."""
+    n, m, d = {"dense": (300, 512, 128), "zero_rows": (300, 512, 128),
+               "ragged": (7237, 4092, 1020)}[case]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    codes = torch.rand(n, m, device=cuda, generator=g)
+    if case == "zero_rows":
+        codes[::3] = 0.0
+    elif case == "ragged":
+        codes = tk.topk_threshold_mask_plain(codes, 128)
+    w_dec = torch.randn(m, d, device=cuda, generator=g) * 0.05
+    b_dec = torch.randn(d, device=cuda, generator=g) * 0.1
+    out = tk.sae_decode_fused(codes, w_dec, b_dec)
+    torch.cuda.synchronize()
+    ref = tk.sae_decode_fused_plain(codes, w_dec, b_dec)
+    # fp32 sums in another order: ~k terms, or all m (dense) of size ~0.05
+    assert torch.allclose(out, ref, atol=1e-4, rtol=1e-5)
+    if case == "zero_rows":
+        assert torch.equal(out[::3], b_dec.expand(out[::3].shape))
