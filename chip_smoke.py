@@ -24,8 +24,12 @@ Phases:
      select timed apart, and the front-end tail's LN0 pass timed alone on
      the path's h0 and on a channels-first one; with ``--parent DIR``
      (``git archive <commit> sls_tpu_torch | tar -x -C DIR``) that
-     commit's wrappers of rows 1-4 and 8, with its kernels built from
-     DIR, timed beside them (old, new, new, old);
+     commit's wrappers of rows 1-5 and 8, with its kernels built from
+     DIR, timed beside them (old, new, new, old); the vote kernel (row
+     5) also logged with the bytes its design moves (halo chunks
+     included), and its streamed form (M 8192 at window 8, window 32 at
+     M 4096, M 32768) held bit-equal to the plain version and timed,
+     beside the parent's kernel with ``--parent``;
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -170,7 +174,7 @@ def path_kernels(layers: int) -> dict:
 # the hand-written kernels' names as the profiler shows them
 OWN_KERNELS = ("cast_x_bf16_kernel", "cast_w_bf16_kernel", "encode_bf16_wgmma_kernel",
                "topk_radix_select_kernel", "split_x_kernel", "split_w_kernel",
-               "encode_tf32x3_kernel", "window_mask_kernel", "frame_vote_kernel",
+               "encode_tf32x3_kernel", "window_vote_kernel",
                "decode_stream_kernel", "attention_short_kernel", "attention_long_kernel",
                "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
                "frontend_conv_wgmma_kernel")
@@ -310,6 +314,48 @@ def load_parent(root):
             del sys.modules[name]
         sys.modules.update(saved)
     return {"sae_kernels": tk, "frontend": tf}
+
+
+def vote_bytes_moved(tk, batch, frames, m, blocks) -> float:
+    """Bytes the vote kernel moves through device memory: every frame of
+    a stripe's chunks below T read once per stripe (halo chunks included;
+    frames after the last window's never read), and every frame written
+    once, fp32."""
+    stride, n_windows, n_chunks = tk._window_geometry(frames, WINDOW)
+    read = 0
+    for _, _, c0, c1 in tk.vote_stripes(batch, n_chunks, blocks):
+        if c0 <= n_windows:
+            j0, j1 = max(c0 - 1, 0), min(c1 + 1, n_windows + 1)
+            read += min(j1 * stride, frames) - j0 * stride
+    return 4.0 * m * (read + batch * frames)
+
+
+def phase_vote_streamed(torch, tk, acts3, k, old, device, iters) -> dict:
+    """The vote kernel's streamed form, which takes every shape the resident
+    form cannot hold (M > 4096, M % 8 != 0, a large window): at M 8192 and
+    window 8 (the flagship's activations and their mirror image side by
+    side), at window 32 on the flagship's, and at M 32768 (eight copies
+    side by side, eight utterances), too wide to carry its chunk sums on
+    chip, held bit-equal to the plain version and timed, beside the
+    parent's kernel ``old`` in turns where there is one."""
+    cases = {"double_m_window8": (torch.cat((acts3, acts3.flip(-1)), -1), 8),
+             "window32": (acts3, 32),
+             "eightfold_m_window8": (torch.cat([acts3] * 8, -1)[:8].contiguous(), 8)}
+    res = {}
+    for label, (a, w) in cases.items():
+        out = tk.window_vote_fused(a, k, w)
+        sync(torch, device)
+        ref = tk.window_vote_fused_plain(a, k, w)
+        equal = bool(torch.equal(out.view(torch.int32), ref.view(torch.int32)))
+        check(equal, f"vote kernel's streamed form ({label}) equals the plain version")
+        row = {"bit_equal": equal}
+        time_row(torch, row, lambda: tk.window_vote_fused(a, k, w),
+                 old and (lambda: old(a, k, w)), device, iters)
+        log(f"window_vote streamed form, {label} {list(a.shape)}: {row['ms']:.4f} ms; the "
+            f"parent's kernel {row.get('parent_ms')} ms (old, new, new, old: "
+            f"{row.get('parent_alternation_ms')})")
+        res[label] = row
+    return res
 
 
 def encode_f64_sweep(torch, tk, device, d, m) -> float:
@@ -527,26 +573,41 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
     both = kept & kept_ref
     flips = int((kept ^ kept_ref).sum())
     err5 = float((voted[both] - voted_ref[both]).abs().max())
+    # every entry's bits, the zeros of unkept entries included
+    bits5 = bool(torch.equal(voted.view(torch.int32), voted_ref.view(torch.int32)))
     log(f"window_vote: max_abs_err {err5:.3e} on the common support; {flips} support "
-        f"flips of {int(kept_ref.sum())} kept entries (tolerance {VOTE_TOL}, no flips)")
-    check(flips == 0 and err5 <= VOTE_TOL, "vote kernel equals the plain version")
+        f"flips of {int(kept_ref.sum())} kept entries; bit-equal {bits5} (tolerance "
+        f"{VOTE_TOL}, no flips)")
+    check(flips == 0 and err5 <= VOTE_TOL and bits5, "vote kernel equals the plain version")
     stride, n_windows, n_chunks = tk._window_geometry(frames, WINDOW)
-    # chunk sums, window sums, 15 compare-and-count passes over the
-    # window and frame rows, and the votes
-    ops5 = batch * m * (n_chunks * stride + n_windows + 2.0 * 15 * (n_windows + frames) + frames)
+    # chunk sums, window sums, the select's two digit passes and its
+    # compare over the window and frame rows, and the votes
+    ops5 = batch * m * (n_chunks * stride + n_windows + 2.0 * 3 * (n_windows + frames) + frames)
     bytes5 = f32 * 2 * n * m
     bound5, by5 = bound(bytes5, ops5, PEAK_FP32_FLOPS)
+    # the kernel's persistent grid: one block an SM
+    vote_blocks = (torch.cuda.get_device_properties(device).multi_processor_count
+                   if device.type == "cuda" else tk.VOTE_BLOCKS)
     vote = {
         "name": "window_vote_fused", "route": "cuda",
         "source": "sls_tpu_torch/kernels/csrc/window_vote.cu",
         "replaces": "sls_tpu/kernels/sae_kernels.py:330",
         "max_abs_err": err5, "tolerance": VOTE_TOL, "support_flips": flips,
-        "ms": timed(torch, lambda: tk.window_vote_fused(acts3, k, WINDOW), device, iters),
         "plain_ms": timed(torch, lambda: tk.window_vote_fused_plain(acts3, k, WINDOW),
                           device, max(iters // 4, 1)),
         "library_ms": None,  # no one PyTorch call computes this function
         "bound_ms": bound5, "bound_by": by5, "ops": ops5, "bytes": bytes5,
     }
+    old5 = parent_wrapper(parent, "sae_kernels", "window_vote_fused")
+    time_row(torch, vote, lambda: tk.window_vote_fused(acts3, k, WINDOW),
+             old5 and (lambda: old5(acts3, k, WINDOW)), device, iters)
+    # computed from the work split, not measured: logged only
+    moved5 = vote_bytes_moved(tk, batch, frames, m, vote_blocks)
+    log(f"window_vote: {vote['ms']:.4f} ms, bound {bound5:.4f} ms ({by5}); the design moves "
+        f"{moved5 / 1e6:.1f} MB (halo chunks included) against the bound's "
+        f"{bytes5 / 1e6:.1f}; the parent's kernel {vote.get('parent_ms')} ms (old, new, new, "
+        f"old: {vote.get('parent_alternation_ms')})")
+    vote["streamed_form"] = phase_vote_streamed(torch, tk, acts3, k, old5, device, iters)
     rows = [enc, enc32, topk, vote, dec]
     for row in rows:
         row["kernel_ms"] = row["ms"]
@@ -908,7 +969,7 @@ def main(argv=None) -> int:
                     help="also print each path's eval-step device time by kernel")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
-                         "parent's): phase 2 times its wrappers of rows 1-4 and 8 beside "
+                         "parent's): phase 2 times its wrappers of rows 1-5 and 8 beside "
                          "this tree's")
     args = ap.parse_args(argv)
 
@@ -1515,7 +1576,7 @@ def main(argv=None) -> int:
         "elements_beyond_one_bf16_ulp_vs_emulation", "cases", "unfused_route_ms", "rel_l2_vs_plain",
         "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal", "rel_l2_vs_fp64",
         "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "cast_ms", "gemm_ms",
-        "select_ms", "ln0_ms",
+        "select_ms", "ln0_ms", "streamed_form",
         "ln0_channels_first_ms", "parent_ms",
         "parent_alternation_ms") if key in row}
         for row in rows]

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA,
 // mbarriers, clusters and wgmma: attention.cu, sae_encode.cu,
-// sae_encode_topk.cu, sae_decode.cu and frontend_tail.cu.  Header-only; every function is internal to the
-// translation unit that includes it.
+// sae_encode_topk.cu, sae_decode.cu, frontend_tail.cu and window_vote.cu.
+// Header-only; every function is internal to the translation unit that
+// includes it.
 
 #pragma once
 
@@ -87,6 +88,44 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // -- TMA -----------------------------------------------------------------------------
+
+// `bytes` contiguous bytes of global memory into shared memory by one bulk
+// copy (no tensor map); both addresses 16-byte aligned, `bytes` a multiple
+// of 16, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes of shared memory out to global memory by one bulk
+// copy in this thread's current bulk group; both addresses 16-byte aligned,
+// `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's bulk stores are complete, their writes
+// ordered before the generic stores that follow
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes, visible to the bulk copies that follow
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // one box of a 2-D tensor map at (c0, c1) into shared memory
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

@@ -15,7 +15,10 @@ is ported (forward only; the backward passes are plain matmuls):
 - ``topk_sparsify``: the exact row top-k mask alone, a second entry of
   ``csrc/sae_encode_topk.cu``;
 - ``window_vote_fused``: the overlap-window vote merge in bf16,
-  ``csrc/window_vote.cu``;
+  ``csrc/window_vote.cu`` (one launch over stripes of chunks, each frame
+  read once, a two-pass radix select over the bf16 patterns;
+  ``kth_bits_bf16_radix_emulated`` and ``window_vote_stripes_emulated``
+  repeat its select and its walk on the CPU for the tests);
 - ``sae_decode_fused``: ``codes @ W_dec + b_dec`` in fp32,
   ``csrc/sae_decode.cu`` (W_dec streamed once per row tile;
   ``sae_decode_streamed_emulated`` walks its tiles and windows on the
@@ -42,6 +45,12 @@ _I = ctypes.c_int
 # the radix select's digits, high to low, over the 31 bits of a positive
 # fp32 pattern: (shift, width) of each pass (csrc/sae_encode_topk.cu)
 RADIX_PASSES = ((23, 8), (15, 8), (7, 8), (0, 7))
+# the vote kernel's radix select over the 15 bits of a positive bf16
+# pattern: (shift, width) of its two passes; and the blocks its persistent
+# grid has on an H100 (one an SM), which set its stripes
+# (csrc/window_vote.cu)
+VOTE_RADIX_PASSES = ((7, 8), (0, 7))
+VOTE_BLOCKS = 132
 # the decode kernel's tiling (csrc/sae_decode.cu): rows and columns of out
 # a block, atoms a window, and row tiles a cluster sharing W_dec's windows
 DECODE_TILE_ROWS, DECODE_TILE_COLS, DECODE_WINDOW, DECODE_CLUSTER = 128, 256, 32, 2
@@ -226,6 +235,95 @@ def _kth_bits_bf16(bits: torch.Tensor, k: int) -> torch.Tensor:
     return lo
 
 
+def kth_bits_bf16_radix_emulated(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The vote kernel's radix select on the CPU (tests only): the same lo
+    as ``_kth_bits_bf16``'s 15 halvings, for rows of sign-extended int16
+    patterns (as int32) [..., M].  Candidates are the patterns >= 1; two
+    digit passes (``VOTE_RADIX_PASSES``: bits 14-7 in 256 bins, then bits
+    6-0 in 128) each histogram the candidates' digit, take the bin holding
+    the remaining rank counted from the top and keep its candidates.  lo =
+    min(b_k, 0x7F7F), b_k the k-th largest candidate, or 0 for a row with
+    fewer than k candidates."""
+    flat = bits.reshape(-1, bits.shape[-1]).long()
+    cand = flat >= 1
+    short = cand.sum(-1) < k
+    prefix = torch.zeros(flat.shape[0], dtype=torch.long, device=flat.device)
+    rank = torch.full_like(prefix, k)
+    for shift, width in VOTE_RADIX_PASSES:
+        digit = (flat >> shift) & ((1 << width) - 1)
+        hist = torch.zeros(flat.shape[0], 1 << width, dtype=torch.long, device=flat.device)
+        hist.scatter_add_(1, torch.where(cand, digit, 0), cand.long())
+        at_or_above = hist.flip(-1).cumsum(-1).flip(-1)
+        above = at_or_above - hist
+        pick = ((above < rank[:, None]) & (at_or_above >= rank[:, None])).long().argmax(-1)
+        rank = rank - above.gather(1, pick[:, None])[:, 0]
+        prefix = prefix | (pick << shift)
+        cand = cand & (digit == pick[:, None])
+    lo = torch.where(short, 0, torch.clamp(prefix, max=0x7F7F)).to(torch.int32)
+    return lo.reshape(bits.shape[:-1] + (1,))
+
+
+def vote_stripes(B: int, n_chunks: int, blocks: int = VOTE_BLOCKS):
+    """The vote kernel's work split: block b of ``blocks`` takes the
+    (utterance, chunk) pairs [B n_chunks b / blocks, B n_chunks (b + 1) /
+    blocks) in utterance-major order; yields each block's stripes as
+    (block, utterance, c0, c1)."""
+    total = B * n_chunks
+    grid = min(blocks, total)
+    for b in range(grid):
+        r, r1 = total * b // grid, total * (b + 1) // grid
+        while r < r1:
+            u, c0 = divmod(r, n_chunks)
+            c1 = min(n_chunks, c0 + r1 - r)
+            yield b, u, c0, c1
+            r += c1 - c0
+
+
+def window_vote_stripes_emulated(acts: torch.Tensor, k: int, window: int,
+                                 blocks: int = VOTE_BLOCKS) -> torch.Tensor:
+    """The vote kernel's walk on the CPU (tests only): each stripe [c0, c1)
+    of ``vote_stripes`` on its own, with chunk c0 - 1 and chunk c1 read
+    for their sums alone where a window needs them; chunk sums in fp32
+    from 0.f in frame order, frames >= T never read; window and frame
+    thresholds by ``kth_bits_bf16_radix_emulated``; frames after the last
+    window's written as zeros.  Equals ``window_vote_fused_plain`` bit for
+    bit on inputs without -0.0 (the plain version's chunk sum starts from
+    the first frame, not from 0.f)."""
+    B, T, M = acts.shape
+    stride, nw, n_chunks = _window_geometry(T, window)
+    a = acts.to(torch.bfloat16)
+    out = torch.full((B, T, M), float("nan"))
+
+    def frames(u, c):  # chunk c's frames below T, bf16
+        return a[u, c * stride:min((c + 1) * stride, T)]
+
+    for _, u, c0, c1 in vote_stripes(B, n_chunks, blocks):
+        if c0 <= nw:
+            j0, j1 = max(c0 - 1, 0), min(c1 + 1, nw + 1)
+            sums = {}
+            for j in range(j0, j1):
+                acc = torch.zeros(M)
+                for f in frames(u, j).float():
+                    acc = acc + f
+                sums[j] = acc
+            masks = {}
+            for i in range(j0, j1 - 1):
+                wbits = (sums[i] + sums[i + 1]).to(torch.bfloat16).view(torch.int16).int()
+                masks[i] = wbits >= kth_bits_bf16_radix_emulated(wbits[None], k)[0]
+            zero = torch.zeros(M, dtype=torch.bool)
+            for c in range(c0, min(c1, nw + 1)):
+                cover = (masks.get(c - 1, zero).to(torch.bfloat16)
+                         + masks.get(c, zero).to(torch.bfloat16))
+                a_c = frames(u, c)
+                vbits = (a_c * cover).view(torch.int16).int()
+                lo = kth_bits_bf16_radix_emulated(vbits, k)
+                keep = (vbits >= lo) & (vbits > 0)
+                out[u, c * stride:c * stride + a_c.shape[0]] = torch.where(keep, a_c, 0).float()
+        for t in range(max(c0, nw + 1) * stride, min(c1 * stride, T)):
+            out[u, t] = 0.0
+    return out
+
+
 def window_vote_fused_plain(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
     """Plain version of ``window_vote_fused``, in the TPU kernel's bf16
     arithmetic: acts [B, T, M] post-ReLU -> [B, T, M] fp32 holding bf16
@@ -366,7 +464,7 @@ def window_vote_fused(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
     if acts.device.type != "cuda":
         raise ValueError(f"no kernel for device {acts.device}")
     B, T, M = acts.shape
-    stride, num_windows, _ = _window_geometry(T, window)
+    stride, num_windows, n_chunks = _window_geometry(T, window)
     _check_operand(acts, "acts", (B, T, M), acts.device)
     if not 1 <= k <= M:
         raise ValueError(f"k must be in [1, {M}], got {k}")
@@ -375,12 +473,11 @@ def window_vote_fused(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
     out = torch.empty_like(acts)
     if B == 0:
         return out
-    mask = torch.empty((B, num_windows, M), dtype=torch.uint8, device=acts.device)
-    fn = _lib("window_vote", "window_vote_launch", [_P] * 3 + [_I] * 6 + [_P])
+    fn = _lib("window_vote", "window_vote_launch", [_P] * 2 + [_I] * 7 + [_P])
     with torch.cuda.device(acts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(acts.data_ptr(), mask.data_ptr(), out.data_ptr(), B, T, M, k, stride,
-                 num_windows, stream)
+        err = fn(acts.data_ptr(), out.data_ptr(), B, T, M, k, stride, num_windows, n_chunks,
+                 stream)
     build.check(err, "window_vote")
     window_vote_fused.launches += 1
     return out

@@ -421,14 +421,64 @@ def test_topk_sparsify_kernel_matches_plain(cuda, shape):
     assert torch.equal(out, tk.topk_threshold_mask_plain(x, k))
 
 
+def _vote_acts_on(device, kind, shape, seed):
+    """ReLU activations for the vote kernel's cases, drawn on ``device``."""
+    b, t, m = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    acts = torch.relu(torch.randn(b, t, m, device=device, generator=g))
+    if kind == "zero_utterance":
+        acts[0] = 0.0
+    elif kind == "ties":  # a few values, so the k-th of every row is tied
+        pool = torch.tensor([0.0, 0.5, 1.0, 2.0], device=device)
+        acts = pool[torch.randint(0, 4, (b, t, m), device=device, generator=g)]
+    elif kind == "few_positive":  # windows with fewer than k positive sums
+        acts[..., 3:] = 0.0
+    elif kind == "with_inf":  # +inf votes NaN where no window covers it
+        acts[:, ::7, ::53] = float("inf")
+    return acts.contiguous()
+
+
+# (B, T, M, k, window, kind): the first three cases, then T below the
+# window, stripes splitting utterances (T 512), window 16, k = 1 and k = M,
+# an all-zero utterance, ties at the k-th value, windows keeping fewer than
+# k positive sums, +inf values (the kernel's dense walk of a chunk), and
+# the streamed form (M above 4096 at window 2, M % 8 != 0, window 32 at M
+# 4096, +inf values, short windows and ties at M 8192, 6000 and 6144,
+# chunks covered on more columns than a list holds (k 3000 and k = M), the
+# widest row whose chunk sums it carries (M 25664), and M 32768 and the
+# widest row the wrapper takes, M 58112)
+VOTE_KERNEL_CASES = {
+    "small": (2, 17, 512, 16, 8, "relu"),
+    "window4": (2, 12, 256, 16, 4, "relu"),
+    "flagship": (36, 201, 4096, 128, 8, "relu"),
+    "t_below_window": (2, 5, 512, 16, 8, "relu"),
+    "t512": (3, 512, 4096, 128, 8, "relu"),
+    "window16": (4, 201, 1024, 32, 16, "relu"),
+    "k1": (3, 201, 512, 1, 8, "relu"),
+    "k_m": (3, 33, 256, 256, 8, "relu"),
+    "zero_utterance": (3, 201, 1024, 64, 8, "zero_utterance"),
+    "ties": (3, 201, 512, 64, 8, "ties"),
+    "few_positive": (3, 57, 512, 16, 8, "few_positive"),
+    "with_inf": (3, 201, 1024, 64, 8, "with_inf"),
+    "streamed_window2": (2, 33, 6144, 64, 2, "relu"),
+    "streamed_m100": (3, 41, 100, 8, 8, "relu"),
+    "streamed_window32": (2, 201, 4096, 128, 32, "relu"),
+    "streamed_with_inf": (2, 201, 8192, 128, 8, "with_inf"),
+    "streamed_few_positive": (3, 57, 6000, 16, 8, "few_positive"),
+    "streamed_ties": (3, 201, 6144, 64, 8, "ties"),
+    "streamed_long_lists": (2, 41, 8192, 3000, 8, "relu"),
+    "streamed_k_m": (2, 17, 6144, 6144, 8, "relu"),
+    "streamed_m25664": (1, 33, 25664, 128, 8, "relu"),
+    "streamed_m32768": (1, 17, 32768, 128, 8, "relu"),
+    "streamed_m_max": (1, 9, 58112, 64, 8, "relu"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 17, 512, 16, 8), (2, 12, 256, 16, 4),
-                                   (36, 201, 4096, 128, 8)],
-                         ids=["small", "window4", "flagship"])
+@pytest.mark.parametrize("shape", list(VOTE_KERNEL_CASES.values()), ids=list(VOTE_KERNEL_CASES))
 def test_window_vote_kernel_matches_plain(cuda, shape):
-    b, t, m, k, w = shape
-    g = torch.Generator(device=cuda).manual_seed(2)
-    acts = torch.relu(torch.randn(b, t, m, device=cuda, generator=g))
+    b, t, m, k, w, kind = shape
+    acts = _vote_acts_on(cuda, kind, (b, t, m), 2)
     before = tk.window_vote_fused.launches
     out = tk.window_vote_fused(acts, k, w)
     torch.cuda.synchronize()
