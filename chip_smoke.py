@@ -78,16 +78,35 @@ Phases:
  11. a multi-process score file: two ranks each score their host_shard
      of phase 3's utterances through produce_scores into a part file;
      the merged file holds every utterance once with phase 3's score,
-     every rank returns the global count, and no part file is left.
+     every rank returns the global count, and no part file is left;
+ 12. the flagship train step at full width and depth (make_train_step,
+     TrainConfig defaults: lr 1e-6, weight decay 1e-4, class weights
+     (0.1, 0.9), SAE weight 0.1) on the flagship's weights, int16 wire
+     batches with seeded labels: (a) utts/s on the host clock over 5
+     steps after 2 warm-up steps, and peak device memory, at batch 14
+     and 36; (b) sae_encode_topk_fused and sae_decode_fused launched
+     once a step through their autograd Functions, no other kernel;
+     (c) one step's loss and every gradient through the kernels against
+     their plain versions (swapped in here), within TRAIN_ENVELOPE of
+     the fp32 SAE route, and the rows whose top-k support differs;
+     (d) remat at batch 36: its peak memory, the same loss; (e) one
+     batch fitted at FIT_LR: the loss finite and falling; (f) a batch
+     with a NaN sample: not finite, the state bit-equal after it;
+ 13. the window-overlap train step at batch 14, as 12 (a) and (b):
+     sae_encode_fused, window_vote_fused and sae_decode_fused once a
+     step.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
 line with the card and the throughputs; the last line is
 ``{"ok": true, "device": {...}}``.  The rehearsal prints none of them.
 ``--profile`` adds each path's eval-step device time by kernel, a T 5120
-forward's, the conv front-end's on both routes, and every rank's
-sequence-parallel forward at both long buckets (torch.profiler), as
-``{"profile": ...}`` lines.
+forward's, the conv front-end's on both routes, every rank's
+sequence-parallel forward at both long buckets, and the flagship train
+step's at batch 14 with its SAE backward GEMMs and its optimizer update
+timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
+lines.  The train figures go into the ``{"run": ...}`` line under
+``"train"``.
 """
 
 from __future__ import annotations
@@ -100,6 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -180,6 +200,20 @@ OWN_KERNELS = ("cast_x_bf16_kernel", "cast_w_bf16_kernel", "encode_bf16_wgmma_ke
                "frontend_conv_wgmma_kernel")
 ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
+
+# Phases 12-13, the train step.  Kernel step against plain step (the
+# SAE wrappers swapped for their plain versions inside the Functions):
+# every trainable tensor's gradient is held to the envelope of the SAE's
+# own rounding, its gradient on the plain route against the same step
+# through the fp32 SAE route (use_pallas off, fp32 operands).  The kernel
+# step must lie within 1.5x of that from the fp32 route and within 2x of
+# it from the plain step (relative L2 per tensor), as ROUTE_ENVELOPE.
+TRAIN_ENVELOPE = (1.5, 2.0)
+TRAIN_BATCHES = (14, 36)  # TrainConfig.batch_size, and the eval paths' batch
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # steps before and inside the timed window
+REMAT_LOSS_REL = 1e-5  # remat replays the same forward: the same loss
+FIT_LR, FIT_STEPS = 1e-4, 6  # fitting one batch: the loss must fall
+WINDOW_TRAIN_STEPS = 2  # phase 13's timed steps, after one warm-up step
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
 SP_RANKS = 4       # phase 10: ranks of the sequence-parallel job
@@ -952,6 +986,141 @@ def sp_profile_job(job, model, mesh, device) -> dict:
     return {"profile": prof}
 
 
+@contextmanager
+def plain_sae_kernels(tk):
+    """The flagship's SAE kernel wrappers (rows 1 and 2) swapped for their
+    plain versions, so that the autograd Functions run the plain forward
+    (this script only; the package never swaps); put back after."""
+    plain = {name: getattr(tk, name + "_plain")
+             for name in ("sae_encode_topk_fused", "sae_decode_fused")}
+    saved = {name: getattr(tk, name) for name in plain}
+    try:
+        for name, fn in plain.items():
+            setattr(tk, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(tk, name, fn)
+
+
+def train_batch(torch, wavs, batch: int, seed: int, device):
+    """One training batch on the device, as a loader with a copy stream
+    leaves it: the int16 wire of the first ``batch`` utterances (tiled),
+    seeded labels, every row valid."""
+    from sls_tpu_torch.data.pipeline import to_wire
+
+    rows = np.resize(wavs, (batch, wavs.shape[1])).astype(np.float32)
+    labels = np.random.default_rng(seed).integers(0, 2, batch)
+    return (torch.from_numpy(to_wire(rows, "int16")).to(device),
+            torch.from_numpy(labels).to(device), torch.ones(batch, device=device))
+
+
+def grads_of(torch, model, tcfg, batch_, seed: int, device):
+    """(loss, codes, {name: gradient}) of one training forward and backward
+    of ``model`` on ``batch_`` with call 0's dropout masks of ``seed``;
+    no update."""
+    from sls_tpu_torch.train.steps import dequantize_wire, dropout_generator, train_loss
+
+    model.zero_grad(set_to_none=True)
+    wav, labels, valid = batch_
+    loss, _, out = train_loss(model, tcfg, dequantize_wire(wav), labels, valid,
+                              dropout_generator(seed, 0, device))
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out["codes"].detach(), grads
+
+
+def time_train_steps(torch, step, state, batch_, seed, device, n_steps):
+    """utts/s of ``n_steps`` train steps on the host clock, ending in a
+    synchronize, and the host's ms to enqueue one more (no wait)."""
+    sync(torch, device)
+    t0 = time.perf_counter()
+    losses = [step(state, *batch_, seed)[1]["loss"] for _ in range(n_steps)]
+    sync(torch, device)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step(state, *batch_, seed)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    sync(torch, device)
+    return {"utts_per_s": n_steps * batch_[0].shape[0] / seconds,
+            "ms_per_step": seconds * 1e3 / n_steps, "enqueue_ms": enqueue_ms,
+            "losses": [float(x) for x in losses]}
+
+
+# kernel-name fragments of the train step's device time by category
+# (first match wins): the convs' cuDNN kernels, the GEMMs, the port's own
+TRAIN_CATEGORIES = (("conv_cudnn", ("cudnn", "dgrad", "wgrad", "fprop", "conv")),
+                    ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+                    ("own_kernels", OWN_KERNELS))
+
+
+def profile_train_step(torch, tk, model, einsum_pos_conv, state, step, batch_, tcfg, seed,
+                       frames, device) -> dict:
+    """The train step's device time by kernel and by category (one step a
+    rep, updating ``state``), and, timed alone with CUDA events at the
+    step's shapes: the SAE backward's four fp32 GEMMs (rows 1 and 2) and
+    their share of the step, the optimizer's update, and the positional
+    conv's forward and backward on its cuDNN route (as it runs, and with
+    cuDNN's autotuner on) and on its per-tap einsum route
+    (``einsum_pos_conv``, the same weights)."""
+    from sls_tpu_torch.train.steps import make_optimizer
+
+    prof = device_time_by_kernel(lambda: step(state, *batch_, seed), reps=3)
+    by_name = prof.pop("by_name_ms")
+    cats = {label: 0.0 for label, _ in TRAIN_CATEGORIES}
+    cats["other"] = 0.0
+    for name, ms in by_name.items():
+        label = next((label for label, parts in TRAIN_CATEGORIES
+                      if any(part in name for part in parts)), "other")
+        cats[label] += ms
+    prof["by_category_ms_per_step"] = cats
+    prof["own_kernels_ms_per_step"] = {
+        name: sum(ms for key, ms in by_name.items() if name in key) for name in OWN_KERNELS}
+
+    sae = model.sae
+    n = batch_[0].shape[0] * frames
+    feats = torch.randn(n, sae.W_enc.shape[0], device=device)
+    codes = tk.sae_encode_topk_fused(feats, sae.W_enc, sae.b_enc, sae.b_dec, sae.config.k)
+    g_codes, g_recon = torch.randn_like(codes), torch.randn_like(feats)
+    prof["sae_backward_gemms_ms"] = timed(
+        torch, lambda: (tk.encode_backward(feats, sae.W_enc, sae.b_dec, codes, g_codes),
+                        tk.decode_backward(codes, sae.W_dec, g_recon)), device, 10)
+    prof["sae_backward_gemms_share"] = prof["sae_backward_gemms_ms"] / prof["device_ms_per_step"]
+    del feats, codes, g_codes, g_recon
+
+    zeros = [torch.zeros_like(p) for p in state.params]
+    adam, keep = make_optimizer(tcfg.lr, tcfg.weight_decay), torch.zeros((), dtype=torch.bool,
+                                                                          device=device)
+
+    def update():  # the guard holds: the same work, no change
+        for p, z in zip(state.params, zeros):
+            p.grad = z
+        adam.apply(state, keep)
+
+    prof["optimizer_update_ms"] = timed(torch, update, device, 5)
+    del zeros
+
+    pos = model.encoder.pos_conv
+    x = torch.randn(batch_[0].shape[0], frames, pos.config.embed_dim, dtype=pos.config.dtype,
+                    device=device, requires_grad=True)
+    g = torch.randn_like(x)
+
+    def fwd_bwd(conv):
+        return lambda: torch.autograd.backward(conv(x), g)
+
+    routes = {"cudnn": timed(torch, fwd_bwd(pos), device, 5)}
+    torch.backends.cudnn.benchmark = True
+    try:
+        routes["cudnn_autotuned"] = timed(torch, fwd_bwd(pos), device, 5)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    routes["einsum"] = timed(torch, fwd_bwd(einsum_pos_conv), device, 5)
+    model.zero_grad(set_to_none=True)
+    prof["pos_conv_fwd_bwd_ms"] = routes
+    return prof
+
+
 def synthetic_wavs(n: int, cut: int, seed: int) -> np.ndarray:
     """Noise with a per-utterance tone, so utterances differ."""
     rng = np.random.default_rng(seed)
@@ -1002,7 +1171,12 @@ def main(argv=None) -> int:
     from sls_tpu_torch.serve.engine import BatchingEngine
     from sls_tpu_torch.serve.scorer import build_scorer_from_params
     from sls_tpu_torch.train.loop import produce_scores
-    from sls_tpu_torch.train.steps import dequantize_wire, make_eval_step
+    from sls_tpu_torch.train.steps import (
+        create_train_state,
+        dequantize_wire,
+        make_eval_step,
+        make_train_step,
+    )
 
     device = torch.device(args.device)
     on_card = device.type == "cuda"
@@ -1559,6 +1733,190 @@ def main(argv=None) -> int:
             check(rank["launches"] == want, f"rank {r}: launches {rank['launches']}, want {want}")
     results["multi_process_scores"] = {"launches": ranks[0]["launches"]}
 
+    # -- phase 12: the flagship train step ---------------------------------------
+    train_batches = TRAIN_BATCHES if on_card else (2, 3)
+    tcfg = exp.train
+    log(f"phase 12: flagship train step, {layers} layers, batches {train_batches}, lr {tcfg.lr}, "
+        f"weight decay {tcfg.weight_decay}, class weights {tcfg.loss_weights}, SAE weight "
+        f"{tcfg.sae_weight}, int16 wire, the flagship's weights")
+    del plain_model, fp32_encoder, fa_model, ff_model, q_model, base_model
+    if on_card:
+        torch.cuda.empty_cache()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def restore():
+        """The flagship's weights as phase 3 drew them (training moves them
+        in place, and every sharing model with them)."""
+        with torch.no_grad():
+            for n, p_ in model.named_parameters():
+                p_.copy_(init[n])
+
+    def want_only(label, launches, expected):
+        want = {n: 0 for n in KERNELS}
+        want.update(expected)
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+
+    train_res, first_loss = {}, {}
+    train_launches = {n: 0 for n in KERNELS}
+    flagship_batch = None
+    for b_ in train_batches:
+        restore()
+        batch_ = train_batch(torch, wavs, b_, args.seed + 7, device)
+        state = create_train_state(model, exp)
+        step = make_train_step(model, exp, device=device)
+        for i in range(TRAIN_WARMUP):
+            _, m_ = step(state, *batch_, args.seed)
+            if i == 0:
+                first_loss[b_] = float(m_["loss"])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = time_train_steps(torch, step, state, batch_, args.seed, device,
+                               TRAIN_TIMED if on_card else 1)
+        launches = counts()
+        n_steps = len(res["losses"]) + 1
+        if on_card:
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            want_only(f"train step at batch {b_}", launches,
+                      {"sae_encode_topk_fused": n_steps, "sae_decode_fused": n_steps})
+        res["launches_per_step"] = {n: c / n_steps for n, c in launches.items() if c}
+        check(all(math.isfinite(x) for x in res["losses"]), "every train loss is finite")
+        check(int(state.step) == TRAIN_WARMUP + n_steps, "every train step committed")
+        train_launches = {n: train_launches[n] + launches[n] for n in KERNELS}
+        log(f"train step, batch {b_}: {json.dumps(res)}")
+        if on_card and args.profile:
+            einsum_pos = sharing(dataclasses.replace(enc_cfg, grouped_conv_einsum=True))
+            prof = profile_train_step(torch, tk, model, einsum_pos.encoder.pos_conv, state,
+                                      step, batch_, exp.train, args.seed, frames, device)
+            del einsum_pos
+            log(json.dumps({"profile": {"path": f"train_step_batch_{b_}", **prof}}))
+            res["profile"] = {key: val for key, val in prof.items() if key != "top"}
+        train_res[f"batch_{b_}"] = res
+        if b_ == train_batches[0]:
+            flagship_batch, flagship_state, flagship_step = batch_, state, step
+        else:
+            del state, step
+    results["train_flagship"] = {"launches": train_launches}
+
+    # (c) one step's gradients through the kernels, through their plain
+    # versions, and through the fp32 SAE route, from the same weights
+    restore()
+    loss_k, codes_k, g_k = grads_of(torch, model, tcfg, flagship_batch, args.seed, device)
+    with plain_sae_kernels(tk):
+        zero_counts()
+        loss_p, codes_p, g_p = grads_of(torch, model, tcfg, flagship_batch, args.seed, device)
+        check(all(c == 0 for c in counts().values()), "the plain step launches no kernel")
+    fp32_sae = sharing(enc_cfg, dataclasses.replace(sae_cfg, use_pallas=False))
+    loss_t, _, g_t = grads_of(torch, fp32_sae, tcfg, flagship_batch, args.seed, device)
+    del fp32_sae
+
+    def over(err, envelope):
+        return err / envelope if envelope else (0.0 if err == 0 else math.inf)
+
+    ratios = {}
+    for n in g_p:
+        e_pt = rel_l2(g_p[n], g_t[n])
+        ratios[n] = (over(rel_l2(g_k[n], g_t[n]), e_pt), over(rel_l2(g_k[n], g_p[n]), e_pt), e_pt)
+    rows_differ = int(((codes_k > 0) != (codes_p > 0)).reshape(-1, codes_k.shape[-1])
+                      .any(-1).sum())
+    worst_t = max(ratios, key=lambda n: ratios[n][0])
+    worst_p = max(ratios, key=lambda n: ratios[n][1])
+    kp = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_fp32_sae": loss_t,
+          "loss_abs_diff": abs(loss_k - loss_p), "support_rows_differ": rows_differ,
+          "rows": int(codes_k.numel() // codes_k.shape[-1]), "tensors": len(ratios),
+          "worst_vs_fp32_over_envelope": [worst_t, ratios[worst_t][0]],
+          "worst_vs_plain_over_envelope": [worst_p, ratios[worst_p][1]],
+          "median_envelope_rel_l2": float(np.median([r[2] for r in ratios.values()]))}
+    log(f"train step, kernels vs plain versions at batch {train_batches[0]}: {json.dumps(kp)}")
+    del g_k, g_p, g_t
+    check(kp["loss_abs_diff"] <= E2E_TOL,
+          "the train loss through the kernels agrees with the plain versions'")
+    check(all(r[0] <= TRAIN_ENVELOPE[0] for r in ratios.values()),
+          "every gradient of the kernel step is within the SAE rounding's envelope of the fp32 "
+          "route")
+    check(all(r[1] <= TRAIN_ENVELOPE[1] for r in ratios.values()),
+          "every gradient of the kernel step agrees with the plain step within the envelope")
+    train_res["kernels_vs_plain"] = kp
+
+    # (d) remat at the larger batch, from the weights (a) started from
+    restore()
+    remat_model = sharing(dataclasses.replace(enc_cfg, remat=True))
+    state = create_train_state(remat_model, exp)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _, m_ = make_train_step(remat_model, exp, device=device)(
+        state, *train_batch(torch, wavs, train_batches[-1], args.seed + 7, device), args.seed)
+    remat = {"loss": float(m_["loss"]), "loss_without_remat": first_loss[train_batches[-1]]}
+    if on_card:
+        remat["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        remat["peak_gib_without_remat"] = train_res[f"batch_{train_batches[-1]}"]["peak_gib"]
+    log(f"train step with remat at batch {train_batches[-1]}: {json.dumps(remat)}")
+    check(math.isclose(remat["loss"], remat["loss_without_remat"], rel_tol=REMAT_LOSS_REL),
+          "remat gives the loss of the step without it")
+    train_res["remat"] = remat
+    del state, remat_model
+
+    # (e) one batch fitted at a larger learning rate: the loss falls
+    restore()
+    fit_exp = dataclasses.replace(exp, train=dataclasses.replace(tcfg, lr=FIT_LR))
+    state = create_train_state(model, fit_exp)
+    fit_step = make_train_step(model, fit_exp, device=device)
+    fit = [float(fit_step(state, *flagship_batch, args.seed)[1]["loss"])
+           for _ in range(FIT_STEPS)]
+    log(f"train step, one batch fitted at lr {FIT_LR} over {FIT_STEPS} steps: losses {fit}")
+    check(all(math.isfinite(x) for x in fit), "the fitted loss is finite at every step")
+    check(fit[-1] < fit[0], "the fitted loss falls")
+    train_res["fit"] = {"lr": FIT_LR, "losses": fit}
+    del state, fit_step
+
+    # (f) a batch holding a NaN sample leaves the state as it was
+    wav_nan = dequantize_wire(flagship_batch[0]).clone()
+    wav_nan[1, 1000] = float("nan")
+    before = ({n: p_.detach().clone() for n, p_ in model.named_parameters()},
+              flagship_state.exp_avg.clone(), flagship_state.exp_avg_sq.clone(),
+              flagship_state.step.clone())
+    _, m_ = flagship_step(flagship_state, wav_nan, *flagship_batch[1:], args.seed)
+    finite = bool(m_["finite"])
+    def bits(t):
+        return t.detach().view(torch.int32)
+
+    same = (all(torch.equal(bits(p_), bits(before[0][n])) for n, p_ in model.named_parameters())
+            and torch.equal(bits(flagship_state.exp_avg), bits(before[1]))
+            and torch.equal(bits(flagship_state.exp_avg_sq), bits(before[2]))
+            and torch.equal(flagship_state.step, before[3]))
+    log(f"train step on a batch with a NaN sample: finite {finite}, loss {float(m_['loss'])}, "
+        f"state bit-equal {same} (after {int(before[3])} committed steps)")
+    check(not finite and same, "the non-finite guard keeps the state bit for bit")
+    train_res["nan_guard"] = {"finite": finite, "state_bit_equal": same}
+    del before, wav_nan
+
+    del flagship_state, flagship_step
+
+    # -- phase 13: the window-overlap train step ---------------------------------
+    restore()
+    log(f"phase 13: window-overlap train step (window {WINDOW}), the flagship's weights, batch "
+        f"{train_batches[0]}")
+    win_train = sharing(enc_cfg, win_cfg.sae)
+    win_exp = dataclasses.replace(exp, model=win_train.config)
+    state = create_train_state(win_train, win_exp)
+    step = make_train_step(win_train, win_exp, device=device)
+    step(state, *flagship_batch, args.seed)
+    zero_counts()
+    res = time_train_steps(torch, step, state, flagship_batch, args.seed, device,
+                           WINDOW_TRAIN_STEPS)
+    launches = counts()
+    n_steps = len(res["losses"]) + 1
+    if on_card:
+        want_only("window-overlap train step", launches,
+                  {"sae_encode_fused": n_steps, "window_vote_fused": n_steps,
+                   "sae_decode_fused": n_steps})
+    check(all(math.isfinite(x) for x in res["losses"]), "every window-overlap train loss is finite")
+    res["launches_per_step"] = {n: c / n_steps for n, c in launches.items() if c}
+    log(f"window-overlap train step, batch {train_batches[0]}: {json.dumps(res)}")
+    train_res["window_overlap"] = res
+    results["train_window_overlap"] = {"launches": launches}
+    del state, step, win_train
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -1587,7 +1945,8 @@ def main(argv=None) -> int:
                                   "log_probs_max_abs", "long_t", "front_end_device_ms",
                                   "against_default") if key in results[label]}
                                   for label in batch_paths},
-                              "long_clip": long_res, "sequence_parallel": sp_res}}))
+                              "long_clip": long_res, "sequence_parallel": sp_res,
+                              "train": train_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

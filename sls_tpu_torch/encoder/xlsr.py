@@ -1,6 +1,6 @@
 """XLS-R (wav2vec2) encoder, counterpart of ``sls_tpu/encoder/xlsr.py``.
 
-Inference path only, with the reference's numerics: matmuls and convs in
+The reference's numerics: matmuls and convs in
 ``config.dtype`` (bf16 at the flagship) with fp32 LayerNorm and softmax
 islands; LayerNorm in flax's fast-variance form; GELU computed in fp32
 and cast back, tanh-approximate iff the dtype is bf16.  Public modules
@@ -18,8 +18,22 @@ set, the conv front-end after conv 0 runs through
 reference's gate holds.  ``int8_serving`` runs fc1/fc2 (and with
 ``int8_scope="all"`` the attention projections) through ``int8_dot``.
 ``grouped_conv_einsum`` computes the pos-conv as per-tap block-diagonal
-einsums on the conv's own weight.  All of these routes are eval-only in
-the reference; the port has no training yet.
+einsums on the conv's own weight.
+
+Training (``forward(..., train=True, generator=g)``) takes the routes
+the reference's ``train=True`` takes: the kernel routes (both attention
+kernels, the fused front-end) and int8 are eval-only there, so under
+``train`` the encoder runs the einsum attention, the unfused front-end
+and ``F.linear`` whatever the config sets, and autograd differentiates
+it.  Dropout goes where the reference applies it (attention
+probabilities, after the FFN's activation, the FFN's and attention's
+outputs, after ``post_extract_proj`` and after the pos-conv), each mask
+drawn from ``g`` by ``dropout``; layerdrop computes the layer and
+selects (``torch.where``), so a dropped layer's parameters still get a
+(zero) gradient; ``remat`` checkpoints each layer
+(``torch.utils.checkpoint``), whose replay redraws the same masks from
+the layer's starting generator state.  Sequence parallelism does not
+train yet (``seq_axis`` with ``train`` raises).
 
 Sequence parallelism (``seq_axis``).  The reference pins the frame axis
 of the layer stack's activations to a mesh axis and lets the compiler
@@ -41,6 +55,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sls_tpu_torch.config import XLSRConfig
 from sls_tpu_torch.kernels.attention import (
@@ -73,6 +88,19 @@ def gelu_fp32(h: torch.Tensor, approximate: bool, dtype: torch.dtype) -> torch.T
     return F.gelu(h.float(), approximate="tanh" if approximate else "none").to(dtype)
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each entry kept with probability 1 - p and
+    scaled by 1 / (1 - p), else zero; the mask drawn from ``generator``
+    (``F.dropout`` takes none).  The identity when ``generator`` is None
+    (eval) or p is 0."""
+    if generator is None or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 class Fp32LayerNorm(nn.Module):
     """LayerNorm computed in fp32 regardless of the input dtype."""
 
@@ -89,8 +117,9 @@ class Fp32LayerNorm(nn.Module):
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
     ``dtype``; parameters stay fp32.  weight is [out, in].  With
-    ``int8`` the reference's ``QuantizableDense`` eval path: the product
-    through ``int8_dot``, then the bias in ``dtype``."""
+    ``int8`` the reference's ``QuantizableDense``: at eval the product
+    through ``int8_dot``, then the bias in ``dtype``; under ``train``
+    ``F.linear`` (the parameters are the same)."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  device=None, int8: bool = False):
@@ -99,9 +128,9 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
-        if self.int8:
+        if self.int8 and not train:
             return int8_dot(x, self.weight.t(), dt) + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -157,10 +186,10 @@ class ConvFeatureExtractor(nn.Module):
         h = wav[:, :, None].to(self.config.dtype)  # [B, samples, 1]
         return self.conv[0](h.transpose(1, 2)).transpose(1, 2)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, train: bool = False) -> torch.Tensor:
         # [B, T, C] views over the convs' storage between layers
         h = self.level0(wav)
-        if self._fused_ok(wav.shape[1]):
+        if self._fused_ok(wav.shape[1], train):
             args, kwargs = self.tail_fused_args()
             return frontend_tail_fused(h, *args, **kwargs)
         return self.tail(h)
@@ -197,13 +226,12 @@ class ConvFeatureExtractor(nn.Module):
         return args, dict(specs=tuple((k, s) for _, k, s in cfg.conv_layers[1:]),
                           approx_gelu=cfg.use_approx_gelu, out_dtype=cfg.dtype)
 
-    def _fused_ok(self, num_samples: int) -> bool:
+    def _fused_ok(self, num_samples: int, train: bool = False) -> bool:
         """The reference's gate (a shape decision, not a fallback): the
-        flag, 'layer_norm' mode, equal widths, at least two layers, and a
-        feasible tiling.  The reference's ``train=True`` also bypasses
-        it; the port has no training yet."""
+        flag, eval (the kernel has no backward), 'layer_norm' mode, equal
+        widths, at least two layers, and a feasible tiling."""
         cfg = self.config
-        if not cfg.fused_frontend or cfg.extractor_mode != "layer_norm":
+        if not cfg.fused_frontend or train or cfg.extractor_mode != "layer_norm":
             return False
         dims = [d for d, _, _ in cfg.conv_layers]
         if len(set(dims)) != 1 or len(cfg.conv_layers) < 2:
@@ -262,8 +290,9 @@ class PositionalConv(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with an fp32 softmax: the attention
-    kernel on the long-T and ``fused_attention`` routes, else matmuls
-    (the reference's einsum path; no library attention kernel)."""
+    kernel on the long-T and ``fused_attention`` routes at eval, else
+    matmuls (the reference's einsum path; no library attention kernel),
+    with dropout on the probabilities under ``train``."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -275,17 +304,18 @@ class SelfAttention(nn.Module):
         self.v_proj = Dense(C, C, dt, device, int8)
         self.out_proj = Dense(C, C, dt, device, int8)
 
-    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C], or with ``shard`` this rank's frames of it, whose
-        queries then meet every frame's keys and values."""
+        queries then meet every frame's keys and values (eval only)."""
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.num_heads, cfg.head_dim
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)  # [B, T, C]
+        q, k, v = self.q_proj(x, train), self.k_proj(x, train), self.v_proj(x, train)  # [B, T, C]
         q = q * (D ** -0.5)
         # The kernel routes are eval-only, as the reference's
-        # ``deterministic`` gate makes them: the port has no training yet,
-        # and the kernel has no backward.
+        # ``deterministic`` gate makes them: the kernel has no backward
+        # (and the encoder refuses ``train`` with ``shard``).
         if shard is not None:
             # The reference's gate, which depends on shapes and the mesh
             # only, so every rank takes the same route: the long-T kernel
@@ -297,22 +327,25 @@ class SelfAttention(nn.Module):
                     and sp_block_q(shard.frames // shard.n_seq) and shard.rows_divide):
                 return self.out_proj(sp_flash_attention_long(q, k, v, H, shard.seq_group))
             k, v = shard.gather_frames(torch.stack([k, v]), dim=2).unbind(0)
-        elif cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
+        elif not train and cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
             # long-T eval (unwindowed full utterances): the [B, H, T, T]
             # scores never reach device memory
             return self.out_proj(flash_attention_long(q, k, v, H))
         q = q.reshape(B, T, H, D)
         k, v = k.reshape(B, -1, H, D), v.reshape(B, -1, H, D)
-        if cfg.fused_attention and shard is None:
+        if cfg.fused_attention and shard is None and not train:
             return self.out_proj(fused_attention(q, k, v).reshape(B, T, C))
         scores = torch.einsum("bthd,bshd->bhts", q, k)
         probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        probs = dropout(probs, cfg.attention_dropout, generator)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
-        return self.out_proj(ctx)
+        return self.out_proj(ctx, train)
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN (XLS-R) or post-LN transformer block."""
+    """Pre-LN (XLS-R) or post-LN transformer block; with ``generator``
+    (``train``) dropout after the FFN's activation and on the attention's
+    and the FFN's outputs."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -325,21 +358,28 @@ class TransformerLayer(nn.Module):
         self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device, cfg.int8_serving)
         self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device, cfg.int8_serving)
 
-    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, train: bool, gen: Optional[torch.Generator]) -> torch.Tensor:
         cfg = self.config
-        h = self.fc1(h)
+        h = self.fc1(h, train)
         if cfg.activation == "gelu":
             h = gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
         else:
             h = torch.relu(h.float()).to(cfg.dtype)
-        return self.fc2(h)
+        h = dropout(h, cfg.activation_dropout, gen)
+        return dropout(self.fc2(h, train), cfg.dropout, gen)
 
-    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None) -> torch.Tensor:
-        if self.config.layer_norm_first:
-            x = x + self.self_attn(self.self_attn_layer_norm(x), shard)
-            return x + self._ffn(self.final_layer_norm(x))
-        x = self.self_attn_layer_norm(x + self.self_attn(x, shard))
-        return self.final_layer_norm(x + self._ffn(x))
+    def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg, gen = self.config, generator
+
+        def attn(h):
+            return dropout(self.self_attn(h, shard, train, gen), cfg.dropout, gen)
+
+        if cfg.layer_norm_first:
+            x = x + attn(self.self_attn_layer_norm(x))
+            return x + self._ffn(self.final_layer_norm(x), train, gen)
+        x = self.self_attn_layer_norm(x + attn(x))
+        return self.final_layer_norm(x + self._ffn(x, train, gen))
 
 
 class XLSREncoder(nn.Module):
@@ -381,20 +421,31 @@ class XLSREncoder(nn.Module):
         return SeqShard(mesh, cfg.seq_axis, wav.shape[0], cfg.num_frames(wav.shape[1]))
 
     def forward(self, wav: torch.Tensor, return_hidden_states: bool = False,
-                shard: Optional[SeqShard] = None):
+                shard: Optional[SeqShard] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``shard`` is ``shard_for(wav, mesh)``, which the caller builds
-        once and also needs for what follows the encoder."""
+        once and also needs for what follows the encoder.  ``train`` takes
+        the training routes, with every dropout mask and layerdrop draw
+        from ``generator`` (required then, on the encoder's device)."""
         cfg = self.config
+        if train and cfg.seq_axis:
+            raise NotImplementedError(
+                "training under sequence parallelism (seq_axis) is not ported: ROADMAP.md "
+                "section 1, the data- and tensor-parallel training slice")
+        if train and generator is None:
+            raise ValueError("train=True needs a generator for dropout and layerdrop")
+        gen = generator if train else None
         if (shard is None) != (not cfg.seq_axis):
             raise ValueError(f"XLSRConfig.seq_axis={cfg.seq_axis!r} and shard={shard!r} do "
                              "not go together: pass shard=shard_for(wav, mesh)")
         if shard is not None:
             wav = shard.take_rows(wav)
-        feats = self.post_extract_norm(self.feature_extractor(wav))
-        x = self.post_extract_proj(feats)
+        feats = self.post_extract_norm(self.feature_extractor(wav, train))
+        x = dropout(self.post_extract_proj(feats), cfg.dropout, gen)
         x = x + self.pos_conv(x)
         if not cfg.layer_norm_first:
             x = self.encoder_layer_norm(x)
+        x = dropout(x, cfg.dropout, gen)
         if shard is not None:
             # sequence parallelism starts here: the O(T) front-end above
             # ran on the whole clip; the O(T^2) layer stack runs on this
@@ -402,7 +453,7 @@ class XLSREncoder(nn.Module):
             x = shard.take_frames(x)
         hidden_states: List[torch.Tensor] = []
         for layer in self.layers:
-            x = layer(x, shard)
+            x = layer(x, shard) if gen is None else self._train_layer(layer, x, gen)
             if return_hidden_states:
                 hidden_states.append(x)
         if cfg.layer_norm_first:
@@ -410,6 +461,34 @@ class XLSREncoder(nn.Module):
         if return_hidden_states:
             return x, hidden_states
         return x
+
+    def _train_layer(self, layer: TransformerLayer, x: torch.Tensor,
+                     gen: torch.Generator) -> torch.Tensor:
+        """One layer under ``train``: layerdrop as compute-and-select, and
+        with ``remat`` the layer checkpointed.  The checkpointed function
+        draws its masks from a generator set to ``gen``'s state at the
+        layer's start, so the backward's replay draws the same masks; then
+        ``gen`` moves on to where the layer left it, as without ``remat``.
+        The global generators are not used, so their state is not kept."""
+        cfg = self.config
+        keep = None
+        if cfg.layerdrop > 0.0:
+            keep = torch.rand((), generator=gen, device=x.device) >= cfg.layerdrop
+        if cfg.remat and torch.is_grad_enabled():
+            start, end = gen.get_state(), []
+
+            def run(h):
+                g = torch.Generator(device=h.device)
+                g.set_state(start)
+                out = layer(h, train=True, generator=g)
+                end[:] = [g.get_state()]
+                return out
+
+            y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+            gen.set_state(end[0])
+        else:
+            y = layer(x, train=True, generator=gen)
+        return y if keep is None else torch.where(keep, y, x)
 
 
 @torch.no_grad()

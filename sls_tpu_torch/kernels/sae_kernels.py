@@ -1,7 +1,7 @@
 """SAE hot-path kernels: wrappers over the CUDA sources, with plain versions.
 
 Counterpart of ``sls_tpu/kernels/sae_kernels.py``; every kernel there
-is ported (forward only; the backward passes are plain matmuls):
+is ported:
 
 - ``sae_encode_topk_fused``: ``relu((x - b_dec) @ W_enc + b_enc)`` with
   bf16 operands and fp32 accumulation, then the exact row top-k mask
@@ -28,6 +28,17 @@ Each wrapper takes its plain PyTorch version (``*_plain``, beside it)
 for a tensor on the CPU, and launches its kernel for a CUDA tensor or
 raises; there is no fallback.  ``<wrapper>.launches`` counts kernel
 launches, so a run can show that its main path went through them.
+
+Training goes through four ``torch.autograd.Function``s, the
+counterparts of the reference's custom VJPs: ``sae_encode_topk``,
+``sae_encode_relu``, ``sae_decode`` and ``window_topk_overlap``.  Each
+forward is the wrapper above (the kernel launches once, in the forward);
+each backward is the reference's exact formula in fp32 ``torch.matmul``
+(``encode_backward``, ``decode_backward``, the vote's mask), as the
+reference's backward passes are XLA, not Pallas.  The masks come from
+the forward's output (``out > 0``): an entry kept at zero gets no
+gradient.  The fp32 GEMMs run without TF32, PyTorch's default for
+matmul, which the package never changes.
 """
 
 from __future__ import annotations
@@ -515,3 +526,96 @@ def sae_decode_fused(codes, w_dec, b_dec) -> torch.Tensor:
 
 
 sae_decode_fused.launches = 0
+
+
+# -- autograd Functions -------------------------------------------------------
+
+
+def encode_backward(x, w_enc, b_dec, out, g):
+    """The reference's VJP of both fused encodes (``_encode_bwd``):
+    (d_x, d_W_enc, d_b_enc, d_b_dec) for codes ``out`` [N, M] of x [N, D]
+    and the cotangent g [N, M], in fp32."""
+    g_pre = torch.where(out > 0, g.float(), 0.0)
+    d_x = g_pre @ w_enc.float().t()
+    d_w = (x.float() - b_dec.float()).t() @ g_pre
+    return d_x, d_w, g_pre.sum(0), -d_x.sum(0)
+
+
+def decode_backward(codes, w_dec, g):
+    """The reference's VJP of the decode (``_sae_decode_bwd``): (d_codes,
+    d_W_dec, d_b_dec) for the cotangent g [N, D], in fp32."""
+    g = g.float()
+    return g @ w_dec.float().t(), codes.float().t() @ g, g.sum(0)
+
+
+class _EncodeTopK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, b_dec, k):
+        out = sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k)
+        ctx.save_for_backward(x, w_enc, b_dec, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*encode_backward(*ctx.saved_tensors, g), None)
+
+
+class _EncodeRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, b_dec):
+        out = sae_encode_fused(x, w_enc, b_enc, b_dec)
+        ctx.save_for_backward(x, w_enc, b_dec, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return encode_backward(*ctx.saved_tensors, g)
+
+
+class _Decode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, codes, w_dec, b_dec):
+        ctx.save_for_backward(codes, w_dec)
+        return sae_decode_fused(codes, w_dec, b_dec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return decode_backward(*ctx.saved_tensors, g)
+
+
+class _WindowVote(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acts, k, window):
+        out = window_vote_fused(acts, k, window)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return torch.where(out > 0, g, 0.0), None, None
+
+
+def sae_encode_topk(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
+    """Differentiable ``sae_encode_topk_fused`` (the reference's
+    ``sae_encode_topk``): the top-k mask is a constant of the backward,
+    which sees the kept entries' encode as fp32 and unrounded."""
+    return _EncodeTopK.apply(x, w_enc, b_enc, b_dec, k)
+
+
+def sae_encode_relu(x, w_enc, b_enc, b_dec) -> torch.Tensor:
+    """Differentiable ``sae_encode_fused``, the ReLU mask taken from its
+    output (the reference's ``sae_encode_relu``)."""
+    return _EncodeRelu.apply(x, w_enc, b_enc, b_dec)
+
+
+def sae_decode(codes, w_dec, b_dec) -> torch.Tensor:
+    """Differentiable ``sae_decode_fused`` (the reference's ``sae_decode``)."""
+    return _Decode.apply(codes, w_dec, b_dec)
+
+
+def window_topk_overlap(acts, k: int, window: int) -> torch.Tensor:
+    """Differentiable ``window_vote_fused`` (the reference's
+    ``window_topk_overlap_pallas``): d_acts = g where the output is
+    positive, else 0."""
+    return _WindowVote.apply(acts, k, window)

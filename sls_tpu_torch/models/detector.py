@@ -11,6 +11,14 @@
 log-probs and skips the decode, which the JAX serving step gets from
 XLA's dead-code elimination.
 
+The mode is an argument, as in the reference: ``forward(wav,
+train=True, generator=g)`` takes the encoder's training routes and
+applies dropout (masks and layerdrop draws from ``g``); the default is
+eval.  ``nn.Module.train()`` / ``eval()`` change nothing here.  With
+``freeze_encoder`` the encoder runs under ``torch.no_grad()`` (the
+reference's ``stop_gradient``; still in the given mode), so it keeps no
+activations and gets no gradient.
+
 With ``encoder.seq_axis`` set both take the ``Mesh`` and run
 sequence-parallel (``parallel/sequence.py``): the encoder returns this
 rank's rows and frames, the per-timestep SAE encodes them as they are
@@ -22,6 +30,7 @@ all-reduced over the sequence axis, and every rank returns every row's
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,9 +45,9 @@ from sls_tpu_torch.sae.topk import TopKSAE, reconstruction_loss
 
 
 class Detector(nn.Module):
-    """Inference-mode detector.  Parameters are fp32 on ``device`` and
-    drawn from ``generator`` (default: seed 0 on that device); on the
-    ``meta`` device they are left uninitialised."""
+    """The detector.  Parameters are fp32 on ``device`` and drawn from
+    ``generator`` (default: seed 0 on that device); on the ``meta``
+    device they are left uninitialised."""
 
     def __init__(self, config: ModelConfig, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
@@ -53,7 +62,7 @@ class Detector(nn.Module):
             self.sae = TopKSAE(config.sae, dtype=sae_dtype, device=dev)
         self.classifier = MeanPoolClassifier(
             config.classifier_input_dim, config.classifier_hidden,
-            config.num_classes, device=dev)
+            config.num_classes, config.classifier_dropout, device=dev)
         if dev.type != "meta":
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -61,23 +70,26 @@ class Detector(nn.Module):
             if config.use_sae:
                 self.sae.reset_parameters(generator)
             init_weights_(self.classifier, generator)
-        self.eval()
 
-    def _encode(self, wav: torch.Tensor, mesh: Optional[Mesh]
+    def _encode(self, wav: torch.Tensor, mesh: Optional[Mesh], train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[SeqShard], Optional[SeqShard]]:
         """fp32 encoder features; how the batch is cut on ``mesh`` (None
         without ``seq_axis``); and that cut again if the features are
         still this rank's frames, None once they are whole."""
         shard = self.encoder.shard_for(wav, mesh)
-        feats32 = self.encoder(wav, shard=shard).float()
+        with torch.no_grad() if self.config.freeze_encoder else nullcontext():
+            feats = self.encoder(wav, shard=shard, train=train, generator=generator)
+        feats32 = feats.float()
         frames = shard
         if shard is not None and self.config.use_sae and not self.sae.row_parallel:
             feats32, frames = shard.gather_frames(feats32), None
         return feats32, shard, frames
 
-    def forward(self, wav: torch.Tensor, mesh: Optional[Mesh] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Returns a dict with:
+    def forward(self, wav: torch.Tensor, mesh: Optional[Mesh] = None, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``train`` takes the training routes with dropout from
+        ``generator`` (required then).  Returns a dict with:
 
         log_probs  [B, 2]      log-softmax outputs (class 1 = bonafide)
         score      [B]         P(bonafide) = exp(log_probs[:, 1])
@@ -88,7 +100,9 @@ class Detector(nn.Module):
         recon      [B, T, D]   SAE reconstruction (when use_sae)
         """
         cfg = self.config
-        feats32, shard, frames = self._encode(wav, mesh)
+        if train and generator is None:
+            raise ValueError("train=True needs a generator for dropout")
+        feats32, shard, frames = self._encode(wav, mesh, train, generator)
         zero = torch.zeros((), dtype=torch.float32, device=feats32.device)
         out: Dict[str, torch.Tensor] = {"features": feats32}
         sae_loss = zero
@@ -107,7 +121,7 @@ class Detector(nn.Module):
             cls_in = codes if cfg.use_sparse_features else recon
         else:
             cls_in = feats32
-        log_probs = self.classifier(cls_in, frames)
+        log_probs = self.classifier(cls_in, frames, generator if train else None)
         if shard is not None:
             log_probs = shard.gather_rows(log_probs)
         out["log_probs"] = log_probs

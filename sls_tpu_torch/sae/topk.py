@@ -10,8 +10,13 @@ rule, ``decode`` = codes @ W_dec + b_dec.  Parameters live in fp32.
 routes it through its Pallas kernels: the fused bf16 encode + top-k for
 ``per_timestep``, the fp32 encode then the bf16 vote merge for
 ``window_overlap`` with an even window, the fp32 encode then the plain
-rule otherwise, and the fp32 decode.  Without it the plain matmuls run
-in ``dtype``, as the JAX package's XLA path does.
+rule otherwise, and the fp32 decode.  Every such call goes through the
+kernel's ``torch.autograd.Function`` (forward: the kernel; backward: the
+reference's fp32 matmuls), serving and training alike; under
+``inference_mode`` a Function is only its forward.  Without
+``use_pallas`` the plain matmuls run in ``dtype``, as the JAX package's
+XLA path does, and autograd differentiates the plain rules with their
+masks held constant.
 
 Under sequence parallelism (``parallel/sequence.py``) the per-timestep
 variant works on any rank's frames as they are (``row_parallel``); the
@@ -26,12 +31,7 @@ import torch
 from torch import nn
 
 from sls_tpu_torch.config import SAEConfig
-from sls_tpu_torch.kernels.sae_kernels import (
-    sae_decode_fused,
-    sae_encode_fused,
-    sae_encode_topk_fused,
-    window_vote_fused,
-)
+from sls_tpu_torch.kernels import sae_kernels as sk
 from sls_tpu_torch.sae.sparsify import topk_per_row, window_topk_hard, window_topk_overlap
 
 VARIANTS = ("per_timestep", "window_overlap", "window_hard")
@@ -71,7 +71,7 @@ class TopKSAE(nn.Module):
         """ReLU encoder activations before sparsification.  x: [..., D]."""
         if self.config.use_pallas:
             flat = x.reshape(-1, x.shape[-1])
-            out = sae_encode_fused(flat, self.W_enc, self.b_enc, self.b_dec)
+            out = sk.sae_encode_relu(flat, self.W_enc, self.b_enc, self.b_dec)
             return out.reshape(*x.shape[:-1], self.config.dict_size)
         h = (x - self.b_dec).to(self.dtype) @ self.W_enc.to(self.dtype)
         return torch.relu(h.float() + self.b_enc)
@@ -96,17 +96,17 @@ class TopKSAE(nn.Module):
         cfg = self.config
         if cfg.use_pallas and cfg.variant == "per_timestep":
             flat = x.reshape(-1, x.shape[-1])
-            out = sae_encode_topk_fused(flat, self.W_enc, self.b_enc, self.b_dec, cfg.k)
+            out = sk.sae_encode_topk(flat, self.W_enc, self.b_enc, self.b_dec, cfg.k)
             return out.reshape(*x.shape[:-1], cfg.dict_size)
         if (cfg.use_pallas and cfg.variant == "window_overlap"
                 and x.dim() == 3 and cfg.window_size % 2 == 0):
-            return window_vote_fused(self.pre_activations(x), cfg.k, cfg.window_size)
+            return sk.window_topk_overlap(self.pre_activations(x), cfg.k, cfg.window_size)
         return self.sparsify(self.pre_activations(x))
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         if self.config.use_pallas:
             flat = codes.reshape(-1, codes.shape[-1])
-            out = sae_decode_fused(flat, self.W_dec, self.b_dec)
+            out = sk.sae_decode(flat, self.W_dec, self.b_dec)
             return out.reshape(*codes.shape[:-1], self.config.activation_dim)
         y = codes.to(self.dtype) @ self.W_dec.to(self.dtype)
         return y.float() + self.b_dec

@@ -215,13 +215,13 @@ def test_window_variants_need_three_dims(sae_params):
 
 def test_window_overlap_routing_through_the_wrappers(sae_params, monkeypatch):
     """Under use_pallas an even window goes through sae_encode_fused then
-    window_vote_fused, and never through the per-timestep fused kernel."""
-    import sls_tpu_torch.sae.topk as ttopk
-
+    window_vote_fused, and never through the per-timestep fused kernel.
+    The wrappers are called from the autograd Functions beside them, so
+    they are watched in ``sae_kernels``."""
     calls = []
     for name in ("sae_encode_fused", "window_vote_fused", "sae_encode_topk_fused"):
-        fn = getattr(ttopk, name)
-        monkeypatch.setattr(ttopk, name,
+        fn = getattr(tk, name)
+        monkeypatch.setattr(tk, name,
                             lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
     _, port = _sae_pair("window_overlap", 8, True, sae_params)
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 17, D)).astype(np.float32))
