@@ -91,10 +91,34 @@ Phases:
      the fp32 SAE route, and the rows whose top-k support differs;
      (d) remat at batch 36: its peak memory, the same loss; (e) one
      batch fitted at FIT_LR: the loss finite and falling; (f) a batch
-     with a NaN sample: not finite, the state bit-equal after it;
+     with a NaN sample: not finite, the state bit-equal after it; (g)
+     remat at the encoder's dropout 0.1 against the step without it:
+     the same loss, each gradient within REMAT_GRAD_REL or 2x the
+     step's own run-to-run difference;
  13. the window-overlap train step at batch 14, as 12 (a) and (b):
      sae_encode_fused, window_vote_fused and sae_decode_fused once a
-     step.
+     step;
+ 14. the Trainer on the flagship's weights (TrainConfig defaults, batch
+     14, RawBoost algorithm 3; int16-wire synthetic audio, seeded
+     labels; run directories under TMPDIR, whose free space is checked
+     first, deleted at the end): (a) RawBoost's algorithms 1-8 at
+     [14, 64600], finite, ms a batch by CUDA events, ISD's modified
+     share, SSI's SNR, the cascade, filter_fir and the freqz peak
+     against fp64 on the CPU; (b) Trainer A fits one epoch (40
+     utterances shuffled, 20 to validate): the CSV row, last.ckpt and
+     best.ckpt, seconds, GB a save, peak memory, sae_encode_topk_fused
+     and sae_decode_fused once a train step and a validation batch
+     and no other kernel; (c) Trainer B, fresh with other weights,
+     resumes from A's last.ckpt (step, calls and every tensor equal
+     bit for bit), then, under deterministic algorithms, A (in memory)
+     and B fit epoch 1: their CSV rows and every tensor bit-equal; a
+     third run resumed with a planted fault (``calls`` not restored, so
+     other dropout masks) must differ from A; (d) utts/s of
+     train_epoch on the host clock (140 utterances, its one fetch
+     included) beside phase 12's step at batch 14, and of validate; the
+     host syncs of the epoch loop, which must be 0, and its bounding
+     waits, one for ten steps; (e)
+     Trainer.produce_scores against the eval step's scores.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -106,15 +130,17 @@ sequence-parallel forward at both long buckets, and the flagship train
 step's at batch 14 with its SAE backward GEMMs and its optimizer update
 timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
 lines.  The train figures go into the ``{"run": ...}`` line under
-``"train"``.
+``"train"``, phase 14's under ``"trainer"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -214,6 +240,24 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # steps before and inside the timed window
 REMAT_LOSS_REL = 1e-5  # remat replays the same forward: the same loss
 FIT_LR, FIT_STEPS = 1e-4, 6  # fitting one batch: the loss must fall
 WINDOW_TRAIN_STEPS = 2  # phase 13's timed steps, after one warm-up step
+
+# Phase 12 (g): remat against the step without it at the encoder's
+# dropout 0.1 (the masks replayed in the backward): the loss within
+# REMAT_LOSS_REL, each gradient within REMAT_GRAD_REL (relative L2, the
+# CPU test's bound in tests/test_torch_train_modes.py) or within 2x of
+# the step's own run-to-run difference on the card, whichever is larger.
+REMAT_DROPOUT = 0.1
+REMAT_GRAD_REL = 1e-6
+
+# Phase 14, the Trainer: TrainConfig's batch, a shuffled train set of
+# three batches (the last with 12 valid rows), a val set whose tail batch
+# has 6, and a throughput set of ten batches (the validation pipeline
+# then drains as it fills: ten batches against a depth of eight).
+TRAINER_SIZES = {"cuda": (14, 40, 20, 140), "cpu": (4, 10, 6, 20)}  # batch, train, val, timed
+RAWBOOST_DET_TOL = 1e-5  # card fp32 against CPU fp64, of max|fp64| (FFT sums)
+RAWBOOST_SNR_TOL = 1e-2  # dB: SSI scales its noise to the drawn SNR exactly, up to rounding
+CKPT_FILES_FREE = 5  # checkpoint files the run directory's disk must hold (4 and a .tmp)
+SCORES_TOL = 1e-6  # Trainer.produce_scores against the eval step's scores, same batches
 
 FULL_BATCHES = 3   # main-path run: three full batches and a short tail
 SP_RANKS = 4       # phase 10: ranks of the sequence-parallel job
@@ -987,6 +1031,40 @@ def sp_profile_job(job, model, mesh, device) -> dict:
 
 
 @contextmanager
+def deterministic_algorithms(torch):
+    """torch's deterministic algorithms, cuDNN's included, inside the
+    block: cuDNN's convolution backward otherwise picks algorithms that
+    sum in another order from run to run.  An op with no deterministic
+    form warns (collected, and returned in the yielded list) rather than
+    stops.  ``CUBLAS_WORKSPACE_CONFIG`` is what torch's check asks for;
+    GEMMs on one stream repeat bit for bit anyway."""
+    import os
+    import warnings
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    nondeterministic: list = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield nondeterministic
+        nondeterministic += sorted({str(w.message)[:200] for w in caught
+                                    if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[2:]
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+@contextmanager
 def plain_sae_kernels(tk):
     """The flagship's SAE kernel wrappers (rows 1 and 2) swapped for their
     plain versions, so that the autograd Functions run the plain forward
@@ -1121,6 +1199,147 @@ def profile_train_step(torch, tk, model, einsum_pos_conv, state, step, batch_, t
     return prof
 
 
+def max_rel(a, b) -> float:
+    """max|a - b| over max|b|, in fp64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_rawboost(torch, rb, rcfg, x, device, iters) -> dict:
+    """Phase 14 (a): every algorithm on the batch ``x`` (finite, same
+    shape, ms by CUDA events), ISD's modified share, SSI's SNR, and the
+    deterministic parts on the device against fp64 on the CPU."""
+    out = {"ms_per_batch": {}}
+    for algo in range(1, 9):
+        cfg = dataclasses.replace(rcfg, algo=algo)
+
+        def run(cfg=cfg, algo=algo):
+            return rb.rawboost_batch(torch.Generator(device=device).manual_seed(algo), x, cfg,
+                                     device=device)
+
+        y = run()
+        check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+              f"RawBoost algorithm {algo}: finite, of the input's shape")
+        out["ms_per_batch"][algo] = timed(torch, run, device, iters)
+        if algo == 2:
+            share = float((y != x).float().mean(-1).max())
+            out["isd_max_modified_share"] = share
+            check(share <= rcfg.P / 100.0, f"ISD modifies at most {rcfg.P} % of a row's samples")
+        if algo == 3:
+            snr = 20 * torch.log10(x.norm(dim=-1) / (y - x).norm(dim=-1))
+            out["ssi_snr_db"] = [float(snr.min()), float(snr.max())]
+            check(bool(((snr >= rcfg.SNRmin - RAWBOOST_SNR_TOL)
+                         & (snr <= rcfg.SNRmax + RAWBOOST_SNR_TOL)).all()),
+                  f"SSI's SNR lies in [{rcfg.SNRmin}, {rcfg.SNRmax}] dB")
+    max_taps, max_total = rb._filter_sizes(rcfg)
+    gen = torch.Generator(device=device).manual_seed(5)
+    draw = rb.draw_notch(gen, (x.shape[0],), rcfg)
+    b, length = rb.notch_coeffs(draw, rcfg, 16000.0, max_taps, max_total)
+    b64, length64 = rb.notch_coeffs(draw.to("cpu", torch.float64), rcfg, 16000.0, max_taps,
+                                    max_total)
+    taps = torch.randn(x.shape[0], max_total, generator=gen, device=device)
+    det = {"cascade": max_rel(b, b64),
+           "filter_fir": max_rel(rb.filter_fir(x, b, length),
+                                 rb.filter_fir(x.cpu().double(), b64, length64)),
+           "freqz_peak": max_rel(rb._freqz_peak(taps), rb._freqz_peak(taps.cpu().double()))}
+    out["deterministic_vs_fp64"] = det
+    check(torch.equal(length.cpu(), length64), "the cascade lengths agree")
+    check(all(v <= RAWBOOST_DET_TOL for v in det.values()),
+          f"RawBoost's deterministic parts on the device are within {RAWBOOST_DET_TOL} of fp64")
+    return out
+
+
+def trainer_bits_equal(torch, a, b) -> bool:
+    """Every parameter and both moments of two Trainers, bit for bit."""
+    def bits(t):
+        return t.detach().contiguous().view(torch.int32)
+
+    theirs = dict(b.model.named_parameters())
+    return (all(torch.equal(bits(p), bits(theirs[n])) for n, p in a.model.named_parameters())
+            and torch.equal(bits(a.state.exp_avg), bits(b.state.exp_avg))
+            and torch.equal(bits(a.state.exp_avg_sq), bits(b.state.exp_avg_sq)))
+
+
+def trainer_diff(torch, a, b) -> float:
+    """max |difference| over every parameter and moment of two Trainers."""
+    theirs = dict(b.model.named_parameters())
+    diffs = [float((p.detach() - theirs[n].detach()).abs().max())
+             for n, p in a.model.named_parameters()]
+    diffs += [float((a.state.exp_avg - b.state.exp_avg).abs().max()),
+              float((a.state.exp_avg_sq - b.state.exp_avg_sq).abs().max())]
+    return max(diffs)
+
+
+def csv_rows(run_dir: Path) -> list:
+    with open(run_dir / "training_log.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def row_diff(a: dict, b: dict) -> float:
+    """max |difference| over two CSV rows' numeric fields but the wall time."""
+    return max(abs(float(a[k]) - float(b[k])) for k in a if k not in ("epoch", "epoch_seconds"))
+
+
+def epoch_with_sync_count(torch, trainer, loader, epoch):
+    """(seconds on the host clock, the syncs the epoch loop asked for
+    outside its bounding waits, those waits' own, each as the file:line
+    chain of its call) of ``trainer.train_epoch``.  Two counters: torch's
+    sync debug mode, which warns at each synchronising call the host
+    makes through torch's own checks (a blocking copy, ``.item()``, a
+    stream or device synchronize), and a wrapper of
+    ``torch.cuda.Event.synchronize``, which that mode does not see.  Both
+    are off inside ``_finish_epoch``, the epoch's one fetch, so what
+    they count is the loop's; an event wait under ``loop.py``'s
+    ``_wait`` is a bounding wait (the host waits for the step eight
+    behind, and for nothing newer)."""
+    import traceback
+    import warnings
+
+    finish = trainer._finish_epoch
+    event_sync = torch.cuda.Event.synchronize
+    counting = [True]
+
+    def quiet_finish(*a, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        counting[0] = False
+        return finish(*a, **kw)
+
+    loop_syncs, waits = [], []
+
+    def record():
+        stack = [f for f in traceback.extract_stack()[:-2]
+                 if not f.filename.endswith("warnings.py")]
+        chain = [f"{Path(f.filename).name}:{f.lineno}:{f.name}" for f in stack[-6:]]
+        in_wait = any(f.name == "_wait" and f.filename.endswith("loop.py") for f in stack)
+        (waits if in_wait else loop_syncs).append(" < ".join(reversed(chain)))
+
+    def on_warning(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            record()  # not e.g. set_sync_debug_mode's own note that it is experimental
+
+    def counted_event_sync(event):
+        if counting[0]:
+            record()
+        return event_sync(event)
+
+    trainer._finish_epoch = quiet_finish
+    torch.cuda.Event.synchronize = counted_event_sync
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            trainer.train_epoch(loader, epoch)
+            seconds = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.Event.synchronize = event_sync
+        del trainer._finish_epoch
+    return seconds, loop_syncs, waits
+
+
 def synthetic_wavs(n: int, cut: int, seed: int) -> np.ndarray:
     """Noise with a per-utterance tone, so utterances differ."""
     rng = np.random.default_rng(seed)
@@ -1154,6 +1373,7 @@ def main(argv=None) -> int:
         return 2
 
     from sls_tpu_torch import config as C
+    from sls_tpu_torch.augment import rawboost as rb
     from sls_tpu_torch.data.audio import pad_or_tile
     from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
     from sls_tpu_torch.encoder import xlsr
@@ -1170,7 +1390,8 @@ def main(argv=None) -> int:
     from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
     from sls_tpu_torch.serve.engine import BatchingEngine
     from sls_tpu_torch.serve.scorer import build_scorer_from_params
-    from sls_tpu_torch.train.loop import produce_scores
+    from sls_tpu_torch.train.loop import _PIPELINE_DEPTH as PIPELINE_DEPTH
+    from sls_tpu_torch.train.loop import Trainer, epoch_row, produce_scores
     from sls_tpu_torch.train.steps import (
         create_train_state,
         dequantize_wire,
@@ -1856,6 +2077,36 @@ def main(argv=None) -> int:
     train_res["remat"] = remat
     del state, remat_model
 
+    # (g) remat at the encoder's dropout 0.1: the backward replays each
+    # layer's forward, which must draw the same masks; the step without
+    # remat run twice gives its own run-to-run difference
+    restore()
+    drop = dict(dropout=REMAT_DROPOUT, attention_dropout=REMAT_DROPOUT,
+                activation_dropout=REMAT_DROPOUT)
+    no_remat_d = sharing(dataclasses.replace(enc_cfg, **drop))
+    remat_d = sharing(dataclasses.replace(enc_cfg, remat=True, **drop))
+    loss_n, _, g_n = grads_of(torch, no_remat_d, tcfg, flagship_batch, args.seed, device)
+    loss_n2, _, g_n2 = grads_of(torch, no_remat_d, tcfg, flagship_batch, args.seed, device)
+    loss_r, _, g_r = grads_of(torch, remat_d, tcfg, flagship_batch, args.seed, device)
+    loss_0, _, _ = grads_of(torch, model, tcfg, flagship_batch, args.seed, device)
+    errs = {n: (rel_l2(g_r[n], g_n[n]), rel_l2(g_n2[n], g_n[n])) for n in g_n}
+    worst = max(errs, key=lambda n: errs[n][0] / max(REMAT_GRAD_REL, 2 * errs[n][1]))
+    remat_drop = {"dropout": REMAT_DROPOUT, "loss": loss_r, "loss_without_remat": loss_n,
+                  "loss_run_to_run": abs(loss_n2 - loss_n), "loss_at_dropout_0": loss_0,
+                  "worst_grad": [worst, *errs[worst]],
+                  "grads_bit_equal": sum(torch.equal(g_r[n], g_n[n]) for n in g_n),
+                  "tensors": len(g_n)}
+    log(f"train step with remat at encoder dropout {REMAT_DROPOUT}, batch {train_batches[0]}: "
+        f"{json.dumps(remat_drop)} (worst: rel L2 against the step without remat, and that "
+        f"step's own run to run)")
+    del g_n, g_n2, g_r, no_remat_d, remat_d
+    check(loss_r != loss_0, "dropout 0.1 changes the loss (the masks are live)")
+    check(math.isclose(loss_r, loss_n, rel_tol=REMAT_LOSS_REL),
+          "remat with dropout gives the loss of the step without it")
+    check(all(e <= max(REMAT_GRAD_REL, 2 * noise) for e, noise in errs.values()),
+          "remat with dropout gives the gradients of the step without it")
+    train_res["remat_dropout"] = remat_drop
+
     # (e) one batch fitted at a larger learning rate: the loss falls
     restore()
     fit_exp = dataclasses.replace(exp, train=dataclasses.replace(tcfg, lr=FIT_LR))
@@ -1917,6 +2168,181 @@ def main(argv=None) -> int:
     results["train_window_overlap"] = {"launches": launches}
     del state, step, win_train
 
+    # -- phase 14: the Trainer ------------------------------------------------------
+    restore()
+    t_phase = time.perf_counter()
+    t_batch, n_train, n_val, n_timed = TRAINER_SIZES[device.type]
+    t_exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train, batch_size=t_batch))
+    rcfg = t_exp.train.rawboost
+    log(f"phase 14: the Trainer, {layers} layers, batch {t_batch}, lr {t_exp.train.lr}, "
+        f"weight decay {t_exp.train.weight_decay}, class weights {t_exp.train.loss_weights}, "
+        f"SAE weight {t_exp.train.sae_weight}, RawBoost algorithm {rcfg.algo}; {n_train} train "
+        f"(shuffled), {n_val} val utterances on the int16 wire, the flagship's weights")
+    trainer_res = {}
+
+    # (a) RawBoost on a batch of the train shape
+    x = torch.from_numpy(synthetic_wavs(t_batch, cut, args.seed + 11)).to(device)
+    trainer_res["rawboost"] = phase_rawboost(torch, rb, rcfg, x, device, 10 if on_card else 1)
+    log(f"RawBoost at [{t_batch}, {cut}]: {json.dumps(trainer_res['rawboost'])}")
+    del x
+
+    def utterances(n, seed):
+        labels = np.random.default_rng(seed).permutation(np.arange(n) % 2)  # both classes
+        return to_wire(synthetic_wavs(n, cut, seed), "int16"), labels
+
+    train_loader = ArrayLoader(*utterances(n_train, args.seed + 12), batch_size=t_batch,
+                               shuffle=True, seed=args.seed)
+    val_loader = ArrayLoader(*utterances(n_val, args.seed + 13), batch_size=t_batch)
+    timed_loader = ArrayLoader(*utterances(n_timed, args.seed + 14), batch_size=t_batch,
+                               shuffle=True, seed=args.seed)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        ckpt_bytes = 4 * (sum(t.numel() for t in model.state_dict().values())
+                          + 2 * sum(p.numel() for p in model.parameters()))
+        free = shutil.disk_usage(work).free
+        trainer_res["disk"] = {"dir": str(work), "free_gb": free / 1e9,
+                               "checkpoint_gb_estimate": ckpt_bytes / 1e9}
+        log(f"trainer run directories in {work}: {free / 1e9:.1f} GB free, a checkpoint "
+            f"~{ckpt_bytes / 1e9:.2f} GB")
+        check(free >= CKPT_FILES_FREE * ckpt_bytes,
+              f"{work} must hold {CKPT_FILES_FREE} checkpoints of ~{ckpt_bytes / 1e9:.2f} GB "
+              f"({CKPT_FILES_FREE * ckpt_bytes / 1e9:.1f} GB) and has {free / 1e9:.1f} GB free: "
+              "point TMPDIR at a larger disk")
+
+        # (b) Trainer A fits epoch 0 from the flagship's weights
+        a = Trainer(t_exp, work / "a", tensorboard=False, device=device)
+        a.model.load_state_dict(model.state_dict(), strict=True)
+        a.init_state()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        a.fit(train_loader, val_loader, num_epochs=1)
+        fit_s = time.perf_counter() - t0
+        launches = counts()
+        results["trainer"] = {"launches": launches}
+        fit_steps, val_batches = train_loader.num_batches(), val_loader.num_batches()
+        if on_card:
+            want_only("Trainer.fit, one epoch", launches,
+                      {"sae_encode_topk_fused": fit_steps + val_batches,
+                       "sae_decode_fused": fit_steps + val_batches})
+        rows_a = csv_rows(work / "a")
+        check(len(rows_a) == 1 and rows_a[0]["epoch"] == "0", "one CSV row for epoch 0")
+        check(all(math.isfinite(float(rows_a[0][k])) for k in ("train_loss", "train_cls_loss",
+                                                                "train_sae_loss", "val_loss",
+                                                                "val_sae_loss")),
+              "the epoch's losses are finite")
+        check(a.ckpt.last_path.exists() and a.ckpt.best_path.exists(),
+              "epoch 0 wrote last.ckpt and best.ckpt")
+        save = dict(a.ckpt.last_save)
+        fit = {"seconds": fit_s, "epoch_seconds_csv": float(rows_a[0]["epoch_seconds"]),
+               "row": rows_a[0], "save": save, "save_gb": save["bytes"] / 1e9,
+               "free_gb_after": shutil.disk_usage(work).free / 1e9,
+               "launches_per_batch": {n: c / (fit_steps + val_batches)
+                                      for n, c in launches.items() if c}}
+        if on_card:
+            fit["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"Trainer.fit, epoch 0: {json.dumps(fit)}")
+        trainer_res["fit"] = fit
+
+        # (c) Trainer B, fresh with other weights, resumes from A's last.ckpt,
+        # and so does F with a planted fault: its calls are not restored
+        b = Trainer(t_exp, work / "b", tensorboard=False, device=device)
+        b.init_state()
+        check(not all(torch.equal(p_, q_) for p_, q_ in zip(a.model.parameters(),
+                                                            b.model.parameters())),
+              "trainer B starts from other weights")
+        t0 = time.perf_counter()
+        check(b.resume(a.ckpt.last_path) and b.start_epoch == 1, "B resumes at epoch 1")
+        resume_s = time.perf_counter() - t0
+        check(b.state.calls == a.state.calls and int(b.state.step) == int(a.state.step),
+              "B has A's step and calls")
+        check(trainer_bits_equal(torch, a, b), "B has every parameter and moment of A, bit for bit")
+        faulty = Trainer(t_exp, work / "fault", tensorboard=False, device=device)
+        faulty.init_state()
+        faulty.resume(a.ckpt.last_path)
+        faulty.state.calls = 0  # the fault: the classifier's dropout masks of epoch 0 again
+        # epoch 1 under deterministic algorithms: A goes on in memory, B from the file
+        a.start_epoch = 1
+        with deterministic_algorithms(torch) as nondeterministic:
+            t0 = time.perf_counter()
+            a.fit(train_loader, val_loader, num_epochs=2)
+            det_fit_s = time.perf_counter() - t0
+            b.fit(train_loader, val_loader, num_epochs=2)
+            row_f = epoch_row(1, faulty.train_epoch(train_loader, 1),
+                              faulty.validate(val_loader), 0.0)
+        row_a, row_b = csv_rows(work / "a")[-1], csv_rows(work / "b")[-1]
+        resume = {"resume_seconds": resume_s, "step": int(b.state.step), "calls": b.state.calls,
+                  "deterministic_fit_seconds": det_fit_s,
+                  "nondeterministic_ops_warned": nondeterministic,
+                  "a_b_bit_equal": trainer_bits_equal(torch, a, b),
+                  "a_b_max_abs": trainer_diff(torch, a, b),
+                  "a_b_row_max_abs": row_diff(row_a, row_b),
+                  "fault": "calls not restored",
+                  "fault_max_abs": trainer_diff(torch, a, faulty),
+                  "fault_row_max_abs": row_diff(row_a, row_f),
+                  "row_a": row_a, "row_b": row_b, "row_fault": row_f}
+        log(f"resume, epoch 1 under deterministic algorithms: A (in memory) against B (from "
+            f"A's last.ckpt) and against a run resumed with calls not restored: "
+            f"{json.dumps(resume)}")
+        check(resume["a_b_bit_equal"] and resume["a_b_row_max_abs"] == 0,
+              "B's epoch 1 equals A's bit for bit: every parameter, moment and CSV field")
+        check(resume["fault_max_abs"] > 0,
+              "a resume that drops calls differs from A (the check sees a resume fault)")
+        trainer_res["resume"] = resume
+        del b, faulty
+
+        # (d) throughput of the epoch loop and of validation, and its host syncs
+        a.train_epoch(timed_loader, 2)  # this set's shapes seen once
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            epoch_s, sync_sites, wait_sites = epoch_with_sync_count(torch, a, timed_loader, 3)
+            loop_syncs = len(sync_sites)
+        else:
+            t0 = time.perf_counter()
+            a.train_epoch(timed_loader, 3)
+            epoch_s, loop_syncs, sync_sites, wait_sites = time.perf_counter() - t0, None, [], []
+        sync(torch, device)
+        t0 = time.perf_counter()
+        a.validate(timed_loader)
+        val_s = time.perf_counter() - t0
+        thr = {"train_epoch_utts_per_s": n_timed / epoch_s, "train_epoch_seconds": epoch_s,
+               "steps": timed_loader.num_batches(),
+               "step_alone_utts_per_s": train_res.get(f"batch_{t_batch}", {}).get("utts_per_s"),
+               "validate_utts_per_s": n_timed / val_s, "loop_host_syncs": loop_syncs,
+               "loop_sync_sites": sorted(set(sync_sites)),
+               "bounding_waits_counted": len(wait_sites),
+               "bounding_wait_sites": sorted(set(wait_sites))}
+        if on_card:
+            thr["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"Trainer throughput over {n_timed} utterances: {json.dumps(thr)}")
+        if on_card:
+            check(loop_syncs == 0, "the epoch loop makes no host sync outside its bounding waits")
+            want_waits = sum(1 for i in range(timed_loader.num_batches())
+                             if i >= PIPELINE_DEPTH and i % PIPELINE_DEPTH == 0)
+            check(len(wait_sites) == want_waits,
+                  f"the epoch loop waits {want_waits} time(s) for the step {PIPELINE_DEPTH} "
+                  f"behind, counted {len(wait_sites)}")
+        trainer_res["throughput"] = thr
+
+        # (e) Trainer.produce_scores against the eval step on the same batches
+        with tempfile.TemporaryDirectory() as tmp:
+            written = a.produce_scores(val_loader, Path(tmp) / "scores.txt")
+            _, scores_t = read_score_file(Path(tmp) / "scores.txt")
+        eval_step = make_eval_step(a.model, device=device)
+        want = np.concatenate([log_probs_to_scores(eval_step(bt.wav)["log_probs"])[bt.valid]
+                               for bt in val_loader.epoch(0)])
+        scores_err = float(np.abs(scores_t - want).max())
+        check(written == n_val and scores_err <= SCORES_TOL,
+              f"Trainer.produce_scores equals the eval step's scores within {SCORES_TOL}")
+        trainer_res["scores_max_abs_vs_eval_step"] = scores_err
+        del a
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    trainer_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 in {trainer_res['phase_seconds']:.1f} s; produce_scores against the eval "
+        f"step: max abs {scores_err:.3e}")
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -1946,7 +2372,7 @@ def main(argv=None) -> int:
                                   "against_default") if key in results[label]}
                                   for label in batch_paths},
                               "long_clip": long_res, "sequence_parallel": sp_res,
-                              "train": train_res}}))
+                              "train": train_res, "trainer": trainer_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

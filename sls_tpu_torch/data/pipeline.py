@@ -38,16 +38,20 @@ def to_wire(wavs: np.ndarray, wire_dtype: str) -> np.ndarray:
 
 
 class ArrayLoader:
-    """In-memory loader: fixed-shape batches in order, the short tail
-    batch filled by repetition and masked by ``valid``.  (Shuffling
-    comes with the training slice.)"""
+    """In-memory loader: fixed-shape batches, the short tail batch filled
+    by repetition and masked by ``valid``.  With ``shuffle`` epoch ``e``
+    takes its order from ``np.random.default_rng((seed, e))``, as the
+    reference's loader does, so both packages see the same batches."""
 
     def __init__(self, wavs: np.ndarray, labels: Optional[np.ndarray],
-                 utt_ids: Optional[List[str]] = None, batch_size: int = 8):
+                 utt_ids: Optional[List[str]] = None, batch_size: int = 8,
+                 shuffle: bool = False, seed: int = 1234):
         self.wavs = wavs
         self.labels = labels
         self.utt_ids = utt_ids or [f"utt_{i}" for i in range(len(wavs))]
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
 
     def host_shard(self, process_index: int, process_count: int,
                    drop_remainder: bool = False) -> "ArrayLoader":
@@ -62,15 +66,18 @@ class ArrayLoader:
             sel = sel[: len(self.wavs) // process_count]
         return ArrayLoader(
             self.wavs[sel], None if self.labels is None else self.labels[sel],
-            [self.utt_ids[i] for i in sel], self.batch_size)
+            [self.utt_ids[i] for i in sel], self.batch_size, self.shuffle, self.seed)
 
     def num_batches(self) -> int:
         return (len(self.wavs) + self.batch_size - 1) // self.batch_size
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
-        n, bs = len(self.wavs), self.batch_size
-        for lo in range(0, n, bs):
-            sel = np.arange(lo, min(lo + bs, n))
+        order = np.arange(len(self.wavs))
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        bs = self.batch_size
+        for lo in range(0, len(order), bs):
+            sel = order[lo : lo + bs]
             valid = np.ones(bs, bool)
             if len(sel) < bs:
                 valid[len(sel):] = False

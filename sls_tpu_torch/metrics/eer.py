@@ -1,6 +1,6 @@
-"""DET curve and EER (own copy of ``compute_det_curve`` and ``compute_eer``
-from ``sls_tpu/metrics/eer.py``, the official ASVspoof 2021 scoring
-math).  Pure numpy on the host: score vectors are small."""
+"""DET curve and EER (own copy of ``compute_det_curve``, ``compute_eer``
+and ``roc_eer`` from ``sls_tpu/metrics/eer.py``, the official ASVspoof
+2021 scoring math).  Pure numpy on the host: score vectors are small."""
 
 from __future__ import annotations
 
@@ -45,3 +45,28 @@ def compute_eer(target_scores: Array, nontarget_scores: Array) -> Tuple[float, f
     frr, far, thresholds = compute_det_curve(target_scores, nontarget_scores)
     idx = int(np.argmin(np.abs(frr - far)))
     return float((frr[idx] + far[idx]) / 2.0), float(thresholds[idx])
+
+
+def roc_eer(scores: Array, labels: Array) -> float:
+    """Training-time EER in percent from pooled scores and binary labels
+    (1 = bonafide), the per-epoch train / val telemetry.  Non-finite
+    scores are dropped; a degenerate input (empty, a single class, or
+    all-equal scores) returns 50 %, chance level."""
+    scores = np.asarray(scores, dtype=np.float64).ravel()
+    labels = np.asarray(labels).ravel()
+
+    keep = np.isfinite(scores)
+    scores, labels = scores[keep], labels[keep]
+    if scores.size == 0:
+        return 50.0
+    if not np.any(labels == 1) or not np.any(labels == 0):
+        return 50.0
+    if np.all(scores == scores[0]):
+        # the DET sweep would land on frr = far = 1 by the sort order's
+        # tie-breaking and report 100 %; the contract is chance level
+        return 50.0
+
+    frr, far, _ = compute_det_curve(scores[labels == 1], scores[labels == 0])
+    idx = int(np.argmin(np.abs(frr - far)))
+    eer = float((frr[idx] + far[idx]) / 2.0) * 100.0
+    return eer if np.isfinite(eer) else 50.0

@@ -1,1 +1,1 @@
-"""Eval step and score production."""
+"""Train and eval steps, the Trainer and score production."""

@@ -51,10 +51,13 @@ def dequantize_wire(wav: torch.Tensor) -> torch.Tensor:
     return wav
 
 
-def _on(x, dev: torch.device) -> torch.Tensor:
-    """``x`` (numpy or tensor) on ``dev``; a host array is copied without
-    waiting for the device (pin it, or the copy may wait)."""
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (numpy or tensor) on ``dev``, without waiting for the device:
+    a host array bound for a card goes up from pinned memory (a pageable
+    copy would wait)."""
     t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
     return t.to(dev, non_blocking=True)
 
 
@@ -134,6 +137,37 @@ class AdamL2:
         state.step = torch.where(finite, count, state.step)
 
 
+def train_state_tree(model: nn.Module, state: TrainState) -> Dict:
+    """What a checkpoint keeps of a training run, as device tensors: the
+    model's ``state_dict`` (frozen parameters too), the trainable
+    ``names``, both moments, ``step`` and ``calls``, from which the
+    dropout seeds come."""
+    return {"model": model.state_dict(), "names": list(state.names),
+            "exp_avg": state.exp_avg, "exp_avg_sq": state.exp_avg_sq,
+            "step": state.step, "calls": state.calls}
+
+
+@torch.no_grad()
+def restore_train_state(model: nn.Module, state: TrainState, tree: Dict) -> None:
+    """Copy a ``train_state_tree`` (host or device tensors) into ``model``
+    and ``state`` in place.  Raises ``ValueError`` when its trainable
+    names differ from ``state``'s (a run saved without
+    ``freeze_encoder`` restored with it, say): the moments would not
+    line up."""
+    if list(tree["names"]) != list(state.names):
+        saved, here = set(tree["names"]), set(state.names)
+        raise ValueError(
+            f"checkpoint's trainable parameters differ from this run's: "
+            f"{len(saved - here)} only in the checkpoint {sorted(saved - here)[:4]}, "
+            f"{len(here - saved)} only here {sorted(here - saved)[:4]}"
+            + ("" if saved != here else ", same names in another order"))
+    model.load_state_dict(tree["model"], strict=True)
+    state.exp_avg.copy_(tree["exp_avg"])
+    state.exp_avg_sq.copy_(tree["exp_avg_sq"])
+    state.step = torch.as_tensor(tree["step"], dtype=torch.int64).to(state.step.device)
+    state.calls = int(tree["calls"])
+
+
 def make_optimizer(lr: float, weight_decay: float) -> AdamL2:
     """Adam with L2 on the gradient (not AdamW), the reference trainer's."""
     return AdamL2(lr, weight_decay)
@@ -202,8 +236,8 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
     class_weights = torch.tensor(tcfg.loss_weights, dtype=torch.float32, device=dev)
 
     def step(state: TrainState, wav, labels, valid, base_seed: int):
-        w = dequantize_wire(_on(wav, dev))
-        y, ok = _on(labels, dev).long(), _on(valid, dev).float()
+        w = dequantize_wire(to_device(wav, dev))
+        y, ok = to_device(labels, dev).long(), to_device(valid, dev).float()
         gen = dropout_generator(base_seed, state.calls, dev)
         state.calls += 1
         model.zero_grad(set_to_none=True)
