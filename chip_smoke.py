@@ -118,7 +118,34 @@ Phases:
      included) beside phase 12's step at batch 14, and of validate; the
      host syncs of the epoch loop, which must be 0, and its bounding
      waits, one for ten steps; (e)
-     Trainer.produce_scores against the eval step's scores.
+     Trainer.produce_scores against the eval step's scores;
+ 15. offline evaluation from files on disk, on the flagship's weights
+     (files under TMPDIR, whose free space is checked first, deleted at
+     the end): (a) the weights written in the reference's namings, a
+     detector ``epoch_7.pth`` (``module.`` prefixes), a fairseq encoder
+     ``.pt`` with an argparse payload and an HF-named one, read back with
+     ``detector_state_from_reference`` and ``load_pretrained_encoder``:
+     every tensor bit-equal, the pos-conv (through weight norm) within
+     POS_CONV_REL_L2; GB and seconds of each file; (b) a fresh Trainer
+     with other weights resumes from the ``.pth`` at epoch 8 holding
+     those weights (W) bit for bit; (c) 170 seeded FLAC files of
+     0.5-10 s under the 2021 DF layout (one at 8 kHz, one at 44.1 kHz,
+     one cut in its header, one stereo), 20 WAVs under In-the-Wild's,
+     the eval lists and a 2019 protocol; (d) eval list ->
+     DatasetIndex -> BatchLoader (int16 wire) -> produce_scores with
+     sae_encode_topk_fused and sae_decode_fused once a batch and no
+     other kernel, the score file bit-equal to the eval step over the
+     same decoded arrays, the float32 wire bit-equal on the 16 kHz mono
+     files (the others' differences printed), the cut file scored as
+     silence, a missing file raising, the WAVs through the non-FLAC
+     branch; (e) build_scorer over a port run directory serving the
+     files through BatchingEngine, bit-equal to the score file; (f) the
+     official scorers (2021 LA with min t-DCF, DF, In-the-Wild, the 2019
+     protocol, the 2021 metadata) over organiser key files written here,
+     each EER equal to compute_eer on the in-memory scores; (g) utts/s of
+     produce_scores from files (20 batches, the files listed again,
+     page-cached), of BatchLoader decoding alone, and the card's busy
+     share of that run's wall time (CUDA events around each step).
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -130,7 +157,8 @@ sequence-parallel forward at both long buckets, and the flagship train
 step's at batch 14 with its SAE backward GEMMs and its optimizer update
 timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
 lines.  The train figures go into the ``{"run": ...}`` line under
-``"train"``, phase 14's under ``"trainer"``.
+``"train"``, phase 14's under ``"trainer"``, phase 15's under
+``"offline"``.
 """
 
 from __future__ import annotations
@@ -140,6 +168,7 @@ import csv
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1349,6 +1378,399 @@ def synthetic_wavs(n: int, cut: int, seed: int) -> np.ndarray:
     return wav.astype(np.float32)
 
 
+# Phase 15, offline evaluation from files on disk
+OFFLINE_EPOCH = 7       # the reference checkpoint's epoch: a resume starts at 8
+OFFLINE_SIZES = {"cuda": (170, 20, 20), "cpu": (12, 6, 5)}  # FLAC files, WAVs, timed batches
+POS_CONV_REL_L2 = 1e-6  # the pos-conv through weight norm and back (fp32 rounding of the fold)
+POS_CONV_KEY = "encoder.pos_conv.conv.weight"
+OFFLINE_FREE = 3        # the disk must hold three times the weight files' bytes
+
+
+def flac_bytes(channels, rate: int) -> bytes:
+    """A FLAC stream of int16 ``channels`` (16-bit, verbatim subframes, one
+    frame a 4096-sample block): the byte-aligned subset of the format,
+    written with numpy.  CRCs are zero; the decoder does not check them."""
+    n, n_ch, block = len(channels[0]), len(channels), 4096
+    head = bytearray(b"fLaC")
+    head += bytes([0x80, 0, 0, 34])  # STREAMINFO, the last metadata block
+    head += block.to_bytes(2, "big") * 2 + bytes(6)
+    packed = (rate << 44) | ((n_ch - 1) << 41) | (15 << 36) | n  # rate, channels, bps-1, total
+    head += packed.to_bytes(8, "big") + bytes(16)  # and an md5 of zeros
+    sr_code = {16000: 5, 44100: 9, 48000: 10}.get(rate, 0)  # 0: the rate from STREAMINFO
+    parts = [bytes(head)]
+    for idx, start in enumerate(range(0, n, block)):
+        bs = min(block, n - start)
+        hdr = bytearray([0xFF, 0xF8, (7 << 4) | sr_code, ((n_ch - 1) << 4) | (4 << 1)])
+        if idx < 0x80:  # the frame number, UTF-8 coded
+            hdr.append(idx)
+        elif idx < 0x800:
+            hdr += bytes([0xC0 | (idx >> 6), 0x80 | (idx & 0x3F)])
+        else:
+            hdr += bytes([0xE0 | (idx >> 12), 0x80 | ((idx >> 6) & 0x3F), 0x80 | (idx & 0x3F)])
+        hdr += (bs - 1).to_bytes(2, "big") + b"\x00"  # block size - 1, CRC-8
+        parts.append(bytes(hdr))
+        for ch in channels:
+            parts.append(b"\x02")  # verbatim subframe, no wasted bits
+            parts.append(np.asarray(ch[start:start + bs], ">i2").tobytes())
+        parts.append(b"\x00\x00")  # CRC-16
+    return b"".join(parts)
+
+
+def write_wav16(path: Path, samples: np.ndarray, rate: int = 16000) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.asarray(samples, "<i2").tobytes())
+
+
+_HF_CONV = {"0.weight": "conv.weight", "0.bias": "conv.bias",
+            "2.1.weight": "layer_norm.weight", "2.1.bias": "layer_norm.bias",
+            "2.weight": "layer_norm.weight", "2.bias": "layer_norm.bias"}
+
+
+def hf_encoder_state(fairseq: dict) -> dict:
+    """The HuggingFace ``Wav2Vec2Model`` naming (``wav2vec2.`` prefixed) of
+    a fairseq encoder state dict."""
+    out = {}
+    for k, v in fairseq.items():
+        if k.startswith("feature_extractor.conv_layers."):
+            i, tail = k[len("feature_extractor.conv_layers."):].split(".", 1)
+            k = f"feature_extractor.conv_layers.{i}.{_HF_CONV[tail]}"
+        elif k.startswith("layer_norm."):
+            k = "feature_projection." + k
+        elif k.startswith("post_extract_proj."):
+            k = k.replace("post_extract_proj.", "feature_projection.projection.")
+        elif k.startswith("encoder.pos_conv.0."):
+            k = k.replace("encoder.pos_conv.0.", "encoder.pos_conv_embed.conv.")
+        elif k.startswith("encoder.layers."):
+            k = (k.replace(".self_attn_layer_norm.", ".layer_norm.")
+                 .replace(".self_attn.", ".attention.")
+                 .replace(".fc1.", ".feed_forward.intermediate_dense.")
+                 .replace(".fc2.", ".feed_forward.output_dense."))
+        out["wav2vec2." + k] = v
+    return out
+
+
+def fairseq_checkpoint(enc_state: dict) -> dict:
+    """A dict shaped like a real fairseq wav2vec2 save: the encoder under
+    ``model`` and an ``argparse.Namespace`` payload, which
+    ``torch.load(weights_only=True)`` refuses."""
+    args = argparse.Namespace(arch="wav2vec2", extractor_mode="layer_norm",
+                              encoder_layers=24, encoder_embed_dim=1024, fp16=False)
+    return {"args": args, "cfg": {"model": vars(args), "task": {"_name": "audio_pretraining"}},
+            "model": enc_state, "optimizer_history": [{"num_updates": 0}],
+            "extra_state": {}, "last_optimizer_state": {}}
+
+
+def bits_equal(torch, got: dict, want: dict, skip=()) -> list:
+    """The keys of ``want`` whose tensors differ from ``got``'s in any bit
+    (a missing or extra key counts too), ``skip`` left out."""
+    bad = sorted(set(got) ^ set(want))
+    for k, v in want.items():
+        if k in got and k not in skip:
+            a, b = got[k].detach().cpu(), v.detach().cpu()
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                bad.append(k)
+    return bad
+
+
+def phase_offline(torch, device, exp, model, batch: int, seed: int, counts, zero_counts,
+                  want_only, eval_utts_per_s) -> dict:
+    """Phase 15: offline evaluation from files on disk at the flagship's
+    width, on its weights (module docstring).  Returns the ``offline``
+    figures of the run line."""
+    from sls_tpu_torch.ckpt.checkpoint import save_checkpoint, to_host
+    from sls_tpu_torch.config import config_to_json
+    from sls_tpu_torch.convert import (
+        detector_state_from_reference,
+        detector_state_to_reference,
+        load_pretrained_encoder,
+    )
+    from sls_tpu_torch.data.pipeline import ArrayLoader, BatchLoader, DatasetIndex
+    from sls_tpu_torch.data.protocols import parse_eval_list
+    from sls_tpu_torch.metrics.eer import compute_eer
+    from sls_tpu_torch.scores.evaluate import score_2021_df, score_2021_la, score_in_the_wild
+    from sls_tpu_torch.scores.standalone import score_2019_protocol, score_2021_metadata
+    from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
+    from sls_tpu_torch.serve.engine import BatchingEngine
+    from sls_tpu_torch.serve.scorer import build_scorer
+    from sls_tpu_torch.train.loop import Trainer, produce_scores
+
+    on_card = device.type == "cuda"
+    cfg, cut = exp.model, exp.train.cut_length
+    n_flac, n_wild, n_timed = OFFLINE_SIZES[device.type]
+    res = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_offline_"))
+    try:
+        src = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        weight_bytes = sum(v.numel() * v.element_size() for v in src.values())
+        free = shutil.disk_usage(work).free
+        res["disk"] = {"dir": str(work), "free_gb": free / 1e9,
+                       "weights_gb": weight_bytes / 1e9}
+        check(free >= OFFLINE_FREE * weight_bytes,
+              f"{work} must hold {OFFLINE_FREE * weight_bytes / 1e9:.1f} GB of weight files "
+              f"and has {free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+
+        # (a) weights out in the reference's namings and back
+        ref = detector_state_to_reference(src, cfg)
+        enc_fs = {k[len("ssl_model.model."):]: v for k, v in ref.items()
+                  if k.startswith("ssl_model.model.")}
+        files = {"epoch_7.pth": {"model": {"module." + k: v for k, v in ref.items()},
+                                 "epoch": OFFLINE_EPOCH},
+                 "xlsr_fairseq.pt": fairseq_checkpoint(enc_fs),
+                 "xlsr_hf.pt": hf_encoder_state(enc_fs)}
+        weights = {}
+        for name, obj in files.items():
+            t0 = time.perf_counter()
+            torch.save(obj, work / name)
+            weights[name] = {"gb": (work / name).stat().st_size / 1e9,
+                             "save_s": time.perf_counter() - t0}
+        del files, ref, enc_fs
+        enc_src = {k[len("encoder."):]: v for k, v in src.items() if k.startswith("encoder.")}
+        t0 = time.perf_counter()
+        W = detector_state_from_reference(
+            torch.load(work / "epoch_7.pth", map_location="cpu", weights_only=True)["model"], cfg)
+        weights["epoch_7.pth"]["load_s"] = time.perf_counter() - t0
+        loaded = {"epoch_7.pth": (W, src)}
+        for name in ("xlsr_fairseq.pt", "xlsr_hf.pt"):
+            t0 = time.perf_counter()
+            enc = load_pretrained_encoder(work / name, cfg.encoder)
+            weights[name]["load_s"] = time.perf_counter() - t0
+            loaded[name] = (enc, enc_src)
+        for name, (got, want) in loaded.items():
+            key = POS_CONV_KEY if name == "epoch_7.pth" else POS_CONV_KEY[len("encoder."):]
+            bad = bits_equal(torch, got, want, skip=(key,))
+            weights[name]["pos_conv_rel_l2"] = rel_l2(got[key], want[key])
+            weights[name]["tensors_not_bit_equal"] = bad
+            check(not bad, f"{name}: every tensor but the pos-conv reloads bit for bit ({bad[:4]})")
+            check(weights[name]["pos_conv_rel_l2"] <= POS_CONV_REL_L2,
+                  f"{name}: the pos-conv reloads within {POS_CONV_REL_L2} (relative L2)")
+        del loaded
+        res["weights"] = weights
+        log(f"phase 15 (a) weights written and read back: {json.dumps(weights)}")
+
+        # (b) a fresh Trainer with other weights resumes from the .pth: W
+        r_exp = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, seed=seed + 15, batch_size=batch))
+        trainer = Trainer(r_exp, work / "resumed", tensorboard=False, device=device)
+        trainer.init_state()
+        check(bool(bits_equal(torch, trainer.model.state_dict(), W)),
+              "the fresh Trainer starts from other weights")
+        t0 = time.perf_counter()
+        check(trainer.resume(work / "epoch_7.pth") and trainer.start_epoch == OFFLINE_EPOCH + 1,
+              f"the Trainer resumes from epoch_7.pth at epoch {OFFLINE_EPOCH + 1}")
+        res["resume_s"] = time.perf_counter() - t0
+        check(not bits_equal(torch, trainer.model.state_dict(), W),
+              "the resumed Trainer holds the reloaded weights W bit for bit")
+        log(f"phase 15 (b) Trainer.resume(epoch_7.pth) in {res['resume_s']:.2f} s: start "
+            f"epoch {trainer.start_epoch}, weights bit-equal to W")
+        step = trainer.eval_step
+
+        # (c) the files: FLAC under the 2021 DF layout, WAVs under In-the-Wild's
+        rng = np.random.default_rng(seed + 16)
+        db = work / "db"
+        flac_dir = db / "ASVspoof2021_DF_eval" / "flac"
+        wild_dir = db / "release_in_the_wild"
+        flac_dir.mkdir(parents=True)
+        wild_dir.mkdir(parents=True)
+        ids = [f"DF_E_{i:07d}" for i in range(n_flac)]
+        labels = rng.permutation(np.arange(n_flac) % 2)
+        special = {0: "rate_8k", 1: "rate_44k", 2: "truncated", 3: "stereo"}
+        for i, u in enumerate(ids):
+            rate = {0: 8000, 1: 44100}.get(i, 16000)
+            n = int(rng.uniform(0.5, 10.0) * rate)
+            t = np.arange(n) / rate
+            x = 0.1 * rng.standard_normal(n) + labels[i] * 0.3 * np.sin(
+                2 * np.pi * rng.uniform(100, 3000) * t)
+            ch = [np.round(np.clip(x, -1, 1) * 32767).astype(np.int16)]
+            if i == 3:
+                ch.append(np.round(np.clip(0.1 * rng.standard_normal(n), -1, 1) * 32767
+                                   ).astype(np.int16))
+            blob = flac_bytes(ch, rate)
+            (flac_dir / f"{u}.flac").write_bytes(blob[:20] if i == 2 else blob)
+        exact = [i for i in range(n_flac) if i not in (0, 1, 3)]  # 16 kHz mono 16-bit
+        (work / "ASVspoof2021.DF.cm.eval.trl.txt").write_text("".join(u + "\n" for u in ids))
+        (work / "ASVspoof2019.LA.cm.eval.trl.txt").write_text("".join(
+            f"LA_{i % 67:04d} {u} - {'-' if lab else f'A{7 + i % 13:02d}'} "
+            f"{'bonafide' if lab else 'spoof'}\n" for i, (u, lab) in enumerate(zip(ids, labels))))
+        wild_ids = [f"{i}.wav" for i in range(n_wild)]
+        wild_labels = rng.permutation(np.arange(n_wild) % 2)
+        for i, w in enumerate(wild_ids):
+            n = int(rng.uniform(0.5, 10.0) * 16000)
+            write_wav16(wild_dir / w, np.round(np.clip(0.1 * rng.standard_normal(n), -1, 1)
+                                               * 32767).astype(np.int16))
+        (work / "in_the_wild.eval.txt").write_text("".join(w + "\n" for w in wild_ids))
+        audio_mb = sum(p.stat().st_size for p in db.rglob("*") if p.is_file()) / 1e6
+        log(f"phase 15 (c) {n_flac} FLAC files ({special}, 0.5-10 s) and {n_wild} WAVs, "
+            f"{audio_mb:.1f} MB, under {db}")
+        res["files"] = {"flac": n_flac, "wav": n_wild, "mb": audio_mb, "special": special}
+
+        # (d) offline scoring: eval list -> DatasetIndex -> BatchLoader -> produce_scores
+        listed = parse_eval_list(work / "ASVspoof2021.DF.cm.eval.trl.txt")
+        index = DatasetIndex.for_eval(listed, db / "ASVspoof2021_DF_eval")
+        loader = BatchLoader(index, batch, cut=cut, wire_dtype="int16")
+        n_batches = loader.num_batches()
+        step(np.zeros((batch, cut), np.int16))  # one-time setup outside the counted run
+        sync(torch, device)
+        zero_counts()
+        t0 = time.perf_counter()
+        written = trainer.produce_scores(loader, work / "scores_DF.txt")
+        files_s = time.perf_counter() - t0
+        launches = counts()
+        if on_card:
+            want_only("offline produce_scores from files", launches,
+                      {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+        got_ids, got = read_score_file(work / "scores_DF.txt")
+        check(written == n_flac and got_ids == ids, "one score line per file, in list order")
+        check(bool(np.all(np.isfinite(got))), "every score is finite")
+
+        def decoded(ldr):
+            return np.concatenate([b.wav[b.valid] for b in ldr.epoch(0)])
+
+        def scores_of(arrays, names, out):
+            produce_scores(step, ArrayLoader(arrays, None, utt_ids=list(names),
+                                             batch_size=batch), out)
+            return read_score_file(out)
+
+        rows_i16 = decoded(loader)
+        ids_m, mem = scores_of(rows_i16, ids, work / "scores_mem.txt")
+        check(ids_m == ids and np.array_equal(got, mem),
+              "file-backed scores equal the eval step's over the same decoded arrays, bit for bit")
+        check(not rows_i16[2].any(), "the truncated file decodes to a zero row")
+        zero = float(log_probs_to_scores(step(np.zeros((batch, cut), np.int16))["log_probs"])[0])
+        d_zero = abs(float(got[2]) - zero)
+        check(d_zero <= SCORES_TOL, "the truncated file scores as a zero waveform")
+        loader32 = BatchLoader(index, batch, cut=cut, wire_dtype="float32")
+        produce_scores(step, loader32, work / "scores_f32.txt")
+        _, got32 = read_score_file(work / "scores_f32.txt")
+        check(np.array_equal(got32[exact], got[exact]),
+              "the float32 wire scores the 16 kHz mono 16-bit files as the int16 wire does, "
+              "bit for bit")
+        off_rows = {special[i]: float(abs(got32[i] - got[i])) for i in (0, 1, 3)}
+        missing = DatasetIndex.for_eval(listed + ["DF_E_missing"], db / "ASVspoof2021_DF_eval")
+        try:
+            produce_scores(step, BatchLoader(missing, batch, cut=cut, wire_dtype="int16"),
+                           work / "scores_missing.txt")
+            raised = None
+        except FileNotFoundError as e:
+            raised = str(e)
+        check(raised is not None, "a list naming a missing file raises FileNotFoundError")
+        wild_index = DatasetIndex.for_in_the_wild(
+            parse_eval_list(work / "in_the_wild.eval.txt"), wild_dir)
+        wild_loader = BatchLoader(wild_index, batch, cut=cut, wire_dtype="int16")
+        produce_scores(step, wild_loader, work / "scores_wild.txt")
+        wild_got_ids, wild_got = read_score_file(work / "scores_wild.txt")
+        _, wild_mem = scores_of(decoded(wild_loader), wild_ids, work / "scores_wild_mem.txt")
+        check(wild_got_ids == wild_ids and np.array_equal(wild_got, wild_mem),
+              "In-the-Wild WAV scores equal the eval step's over the same decoded arrays")
+        res["scoring"] = {"batches": n_batches, "seconds": files_s, "launches": launches,
+                          "truncated_vs_zero_abs": d_zero, "float32_vs_int16_abs": off_rows,
+                          "missing_file_error": raised}
+        log(f"phase 15 (d) {json.dumps(res['scoring'])}")
+
+        # (e) serving the same files from a port run directory
+        serve_dir = work / "serve"
+        save_checkpoint(serve_dir / "last.ckpt", {"model": to_host(trainer.model.state_dict())},
+                        epoch=OFFLINE_EPOCH, config_json=config_to_json(r_exp))
+        _, score_fn, cut_s = build_scorer(serve_dir, wire_dtype="int16", batch_size=batch,
+                                          device=device)
+        check(cut_s == cut, "the run directory's config gives the cut length")
+        with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
+                            max_wait_ms=2000) as engine:
+            futures = [engine.submit(row.astype(np.float32) / 32768.0) for row in rows_i16]
+            served = np.array([f.result(timeout=300) for f in futures])
+            stats = engine.stats().to_dict()
+        check(np.array_equal(served, got),
+              "build_scorer(run_dir) through BatchingEngine serves the offline scores bit for bit")
+        res["serving"] = {"batches": stats["batches"], "requests": stats["requests"]}
+        log(f"phase 15 (e) served {stats['requests']} files in {stats['batches']} batches from "
+            f"{serve_dir}: equal to the offline score file bit for bit")
+
+        # (f) the official scorers over organiser key files
+        keys = work / "keys"
+        for sub in ("LA/ASV/ASVTorch_Kaldi", "LA/CM", "CM"):
+            (keys / sub).mkdir(parents=True)
+        kinds = np.array(["target", "nontarget", "spoof"])[np.arange(300) % 3]
+        asv = rng.normal(np.select([kinds == "target", kinds == "nontarget"], [2.0, -2.0], 0.5))
+        (keys / "LA/ASV/trial_metadata.txt").write_text("".join(
+            f"LA_{i % 67:04d} LA_E_A{i:07d} - - - {k} - eval\n" for i, k in enumerate(kinds)))
+        (keys / "LA/ASV/ASVTorch_Kaldi/score.txt").write_text("".join(
+            f"LA_{i % 67:04d} LA_E_A{i:07d} {float(s)!r}\n" for i, s in enumerate(asv)))
+        cm = "".join(f"LA_{i % 67:04d} {u} - - - {'bonafide' if lab else 'spoof'} - eval\n"
+                     for i, (u, lab) in enumerate(zip(ids, labels)))
+        (keys / "LA/CM/trial_metadata.txt").write_text(cm)
+        (keys / "CM/trial_metadata.txt").write_text(cm)
+        (keys / "in_the_wild_key.txt").write_text("".join(
+            f"speaker {w} - - - {'bona-fide' if lab else 'spoof'}\n"
+            for w, lab in zip(wild_ids, wild_labels)))
+        la = score_2021_la(str(work / "scores_DF.txt"), str(keys))
+        df = score_2021_df(str(work / "scores_DF.txt"), str(keys))
+        wild = score_in_the_wild(str(work / "scores_wild.txt"), str(keys / "in_the_wild_key.txt"))
+        p19 = score_2019_protocol(str(work / "scores_DF.txt"),
+                                  str(work / "ASVspoof2019.LA.cm.eval.trl.txt"))
+        meta = score_2021_metadata(str(work / "scores_DF.txt"), str(keys / "LA/CM/trial_metadata.txt"))
+        eer_mem = compute_eer(mem[labels == 1], mem[labels == 0])[0]
+        eer_wild = compute_eer(wild_mem[wild_labels == 1], wild_mem[wild_labels == 0])[0]
+        official = {"la_eer": la.eer, "la_min_tdcf": la.min_tdcf,
+                    "la_inverted_is_better": la.inverted_is_better, "df_eer": df.eer,
+                    "wild_eer": wild.eer, "p2019_eer": p19["eer"],
+                    "p2019_eer_interp": p19["eer_interp"], "metadata_eer": meta["eer"],
+                    "metadata_min_dcf": meta["min_dcf"], "eer_in_memory": eer_mem,
+                    "wild_eer_in_memory": eer_wild}
+        log(f"phase 15 (f) official scoring (random weights: chance-level EERs expected): "
+            f"{json.dumps(official)}")
+        check(la.eer == df.eer == p19["eer"] == meta["eer"] == eer_mem,
+              "every scorer's EER equals compute_eer on the in-memory scores")
+        check(wild.eer == eer_wild, "the In-the-Wild EER equals compute_eer on its scores")
+        check(math.isfinite(la.min_tdcf), "min t-DCF is finite")
+        res["official"] = official
+
+        # (g) speed: produce_scores from files, and decoding alone
+        reps = [ids[i % n_flac] for i in range(n_timed * batch)]
+        timed_index = DatasetIndex.for_eval(reps, db / "ASVspoof2021_DF_eval")
+        timed_loader = BatchLoader(timed_index, batch, cut=cut, wire_dtype="int16")
+        for _ in timed_loader.epoch(0):  # every file read once: the page cache holds them
+            pass
+        spans = []
+
+        def timed_step(wav):
+            if not on_card:
+                return step(wav)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(wav)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        sync(torch, device)
+        t0 = time.perf_counter()
+        produce_scores(timed_step, timed_loader, work / "scores_timed.txt")
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        busy = (sum(a.elapsed_time(b) for a, b in spans) / 1e3 / wall) if on_card else None
+        t0 = time.perf_counter()
+        for _ in timed_loader.epoch(0):
+            pass
+        decode_s = time.perf_counter() - t0
+        producers, threads = timed_loader.producers_and_decode_threads()
+        speed = {"utts": len(reps), "batches": n_timed, "page_cached": True,
+                 "produce_scores_utts_per_s": len(reps) / wall,
+                 "decode_only_utts_per_s": len(reps) / decode_s,
+                 "eval_step_in_memory_utts_per_s": eval_utts_per_s,
+                 "device_busy_share": busy, "cpu_count": os.cpu_count(),
+                 "producers": producers, "decode_threads_per_producer": threads}
+        log(f"phase 15 (g) {json.dumps(speed)}")
+        res["speed"] = speed
+        del trainer, W
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2343,6 +2765,17 @@ def main(argv=None) -> int:
     log(f"phase 14 in {trainer_res['phase_seconds']:.1f} s; produce_scores against the eval "
         f"step: max abs {scores_err:.3e}")
 
+    # -- phase 15: offline evaluation from files on disk ------------------------------
+    restore()
+    t_phase = time.perf_counter()
+    log(f"phase 15: offline evaluation from files on disk, {layers} layers, batch {batch}, "
+        "int16 wire, the flagship's weights written in the reference's namings and read back")
+    offline_res = phase_offline(torch, device, exp, model, batch, args.seed, counts, zero_counts,
+                                want_only, results["flagship"]["eval_utts_per_s"])
+    results["offline"] = {"launches": offline_res["scoring"]["launches"]}
+    offline_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 in {offline_res['phase_seconds']:.1f} s")
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -2372,7 +2805,8 @@ def main(argv=None) -> int:
                                   "against_default") if key in results[label]}
                                   for label in batch_paths},
                               "long_clip": long_res, "sequence_parallel": sp_res,
-                              "train": train_res, "trainer": trainer_res}}))
+                              "train": train_res, "trainer": trainer_res,
+                              "offline": offline_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,16 +16,23 @@ checkpoint-as-config idiom of the reference).
 - ``CheckpointManager``: ``last.ckpt`` every epoch and ``best.ckpt``
   when ``val_eer`` improves; resume in the order explicit > last > best.
 
-The reference's msgpack files, and its ``_conform_state_dict``
-migration of pre-masked-optimizer states, have no counterpart here:
-this format always stores the trainable names with the moments, and a
-mismatch raises (``train/steps.py::restore_train_state``).  Reading
-``sls_tpu`` msgpack checkpoints and reference ``.pth`` files comes with
-the weights slice (ROADMAP M2).
+``load_checkpoint`` also reads the JAX package's files (flax msgpack,
+through ``ckpt/msgpack.py``), told apart by their first bytes: a
+``torch.save`` file is a zip archive.  Such a file comes back in the
+same ``{"state", "meta"}`` shape, its ``state`` the reference's tree
+(``params``, ``opt_state``, ``step``) with ``params`` mapped to this
+package's state dict (``convert.detector_state_from_flax``);
+``train/steps.py::train_state_tree_from_reference`` turns it into a
+resumable state.  The reference's ``_conform_state_dict`` migration of
+pre-masked-optimizer states has no counterpart: this format always
+stores the trainable names with the moments, and a mismatch raises
+(``train/steps.py::restore_train_state``).  Reference ``.pth`` files
+are read by ``Trainer.resume`` (weights only).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -33,6 +40,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import torch
+
+from sls_tpu_torch.ckpt import msgpack
+from sls_tpu_torch.convert import detector_state_from_flax
 
 PathLike = Union[str, Path]
 
@@ -74,15 +84,43 @@ def save_checkpoint(path: PathLike, state: Dict[str, Any], *, epoch: int,
     return size
 
 
+_ZIP_MAGIC = b"PK\x03\x04"
+
+
+def is_torch_file(path: PathLike) -> bool:
+    """Whether ``path`` is a ``torch.save`` file (a zip archive), not a
+    JAX package's msgpack checkpoint."""
+    with open(path, "rb") as f:
+        return f.read(4) == _ZIP_MAGIC
+
+
 def load_checkpoint(path: PathLike) -> Dict[str, Any]:
-    """``{"state": ..., "meta": ...}`` of a checkpoint, its tensors mapped
-    from the file (copied in when used)."""
-    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    """``{"state": ..., "meta": ...}`` of a checkpoint of either package.
+    This package's tensors are mapped from the file (copied in when
+    used); a JAX package's file is read whole, its ``meta`` holding
+    ``epoch``, ``metrics`` and ``config_json`` as here and its
+    ``state["params"]`` mapped to a state dict (module docstring)."""
+    if is_torch_file(path):
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    raw = msgpack.read(path)
+    meta_raw = raw.get("meta", {})
+    meta = {"epoch": int(meta_raw.get("epoch", 0)),
+            "metrics": json.loads(meta_raw.get("metrics_json", "{}")),
+            "config_json": meta_raw.get("config_json", "")}
+    state = dict(raw["state"])
+    if "params" in state:
+        state["params"] = detector_state_from_flax(state["params"])
+    return {"state": state, "meta": meta}
+
+
+def is_reference_state(state: Dict[str, Any]) -> bool:
+    """Whether a loaded ``state`` came from a JAX package's file."""
+    return "params" in state
 
 
 def read_meta(path: PathLike) -> Dict[str, Any]:
-    """The meta (epoch, metrics, config_json) of a checkpoint, without
-    reading its tensors."""
+    """The meta (epoch, metrics, config_json) of a checkpoint; of this
+    package's files without reading their tensors."""
     return load_checkpoint(path)["meta"]
 
 

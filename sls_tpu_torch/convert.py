@@ -1,9 +1,10 @@
-"""Weights bridge: the JAX ``Detector``'s params -> this package's state dict.
+"""Weights bridges into and out of this package's state dicts.
 
-``detector_state_from_flax(params)`` takes the flax param tree as a
-nested dict of arrays (numpy, or anything ``np.asarray`` accepts) and
-returns a state dict that ``Detector.load_state_dict(strict=True)``
-takes.  The naming follows the flax scopes:
+From the JAX package: ``detector_state_from_flax(params)`` takes the
+flax param tree as a nested dict of arrays (numpy, or anything
+``np.asarray`` accepts) and returns a state dict that
+``Detector.load_state_dict(strict=True)`` takes.  The naming follows the
+flax scopes:
 
 - ``layer_{i}`` -> ``layers.{i}``, ``conv_{i}`` -> ``conv.{i}``,
   ``norm_{i}`` -> ``norm.{i}``; the ``LayerNorm_0`` / ``GroupNorm_0``
@@ -14,17 +15,40 @@ takes.  The naming follows the flax scopes:
 - the SAE's ``W_enc``, ``W_dec``, ``b_enc``, ``b_dec`` keep their names
   and layouts.
 
+From PyTorch checkpoints, directly (no flax tree in between), with the
+naming of ``sls_tpu/encoder/convert.py``:
+
+- ``fairseq_encoder_to_torch``: a fairseq wav2vec2 state dict (either
+  ``extractor_mode``; the pos-conv weight-normed as ``weight_g`` /
+  ``weight_v`` or ``parametrizations.weight.original0/1``, folded in
+  float64, or plain);
+- ``hf_encoder_to_torch``: a HuggingFace ``Wav2Vec2Model`` state dict;
+- ``detector_state_from_reference``: a reference detector checkpoint's
+  ``model`` entry (``ssl_model.model.*``, ``sae.*``,
+  ``classifier.{0,1,4}.*``, optional ``module.`` prefixes);
+- ``load_pretrained_encoder``: a pretrained encoder file (``.npz``,
+  fairseq or HF ``.pt`` / ``.pth``).
+
+Torch and fairseq layouts agree ([out, in] linears, [out, in/g, K]
+convs), so every loaded tensor equals its source bit for bit, except the
+folded pos-conv.  ``detector_state_to_reference`` writes the reference
+naming back (the pos-conv as ``weight_g`` / ``weight_v``).
+
 Tensors come back as views of the given arrays where those are
-writable (transposes are strided views); ``load_state_dict`` copies them.
+writable; ``load_state_dict`` copies them.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
+from pathlib import Path
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from sls_tpu_torch.config import ModelConfig, SAEConfig, XLSRConfig
 
 _INDEXED = re.compile(r"^(layer|conv|norm)_(\d+)$")
 _NORM_SCOPES = ("LayerNorm_0", "GroupNorm_0")
@@ -72,3 +96,245 @@ def detector_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         key, perm = torch_entry(path, arr.ndim)
         state[key] = torch.from_numpy(arr).permute(perm)
     return state
+
+
+# -- PyTorch checkpoints ------------------------------------------------------------
+
+
+def _tensor(value: Any) -> torch.Tensor:
+    """A CPU tensor of a state-dict value (tensor or array)."""
+    if torch.is_tensor(value):
+        return value.detach().cpu()
+    arr = np.asarray(value)
+    if not arr.flags.writeable:  # torch tensors cannot share read-only memory
+        arr = arr.copy()
+    return torch.from_numpy(arr)
+
+
+def _numpy(value: Any) -> np.ndarray:
+    return value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+
+
+def strip_prefixes(state: Mapping[str, Any], prefixes=("module.",)) -> Dict[str, Any]:
+    """``state`` with wrapper prefixes removed from its keys, in the
+    order given (each as often as it repeats); values as they are."""
+    out = {}
+    for key, value in state.items():
+        for p in prefixes:
+            while key.startswith(p):
+                key = key[len(p):]
+        out[key] = value
+    return out
+
+
+def fold_weight_norm(g: Any, v: Any, dim: int = 2) -> np.ndarray:
+    """Fold torch weight-norm (the norm over every dim but ``dim``) into a
+    plain weight: g * v / ||v||, the norm in float64, in ``v``'s dtype."""
+    g, v = _numpy(g), _numpy(v)
+    axes = tuple(i for i in range(v.ndim) if i != dim)
+    norm = np.sqrt(np.sum(v.astype(np.float64) ** 2, axis=axes, keepdims=True))
+    return (g * v / norm).astype(v.dtype)
+
+
+def _copy_linear(out: Dict, s: Mapping, src: str, dst: str) -> None:
+    out[f"{dst}.weight"] = _tensor(s[f"{src}.weight"])
+    if f"{src}.bias" in s:
+        out[f"{dst}.bias"] = _tensor(s[f"{src}.bias"])
+
+
+def _copy_norm(out: Dict, s: Mapping, src: str, dst: str) -> None:
+    out[f"{dst}.weight"] = _tensor(s[f"{src}.weight"])
+    out[f"{dst}.bias"] = _tensor(s[f"{src}.bias"])
+
+
+def _pos_conv_weight(s: Mapping, base: str) -> torch.Tensor:
+    """The pos-conv weight of ``base``: weight-normed (either form) and
+    folded, or plain."""
+    if f"{base}.weight_g" in s:
+        return _tensor(fold_weight_norm(s[f"{base}.weight_g"], s[f"{base}.weight_v"]))
+    if f"{base}.parametrizations.weight.original0" in s:
+        return _tensor(fold_weight_norm(s[f"{base}.parametrizations.weight.original0"],
+                                        s[f"{base}.parametrizations.weight.original1"]))
+    return _tensor(s[f"{base}.weight"])
+
+
+def _encoder_to_torch(s: Mapping, cfg: XLSRConfig, names: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """The encoder's state dict from fairseq- or HF-named ``s``; ``names``
+    gives the source naming of each part."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.conv_layers)):
+        base = f"feature_extractor.conv_layers.{i}"
+        _copy_linear(out, s, f"{base}.{names['conv']}", f"feature_extractor.conv.{i}")
+        if cfg.extractor_mode == "layer_norm" or i == 0:
+            norm = names["conv_ln"] if cfg.extractor_mode == "layer_norm" else names["conv_gn"]
+            _copy_norm(out, s, f"{base}.{norm}", f"feature_extractor.norm.{i}")
+    _copy_norm(out, s, names["post_extract_norm"], "post_extract_norm")
+    _copy_linear(out, s, names["post_extract_proj"], "post_extract_proj")
+    out["pos_conv.conv.weight"] = _pos_conv_weight(s, names["pos_conv"])
+    out["pos_conv.conv.bias"] = _tensor(s[f"{names['pos_conv']}.bias"])
+    for i in range(cfg.encoder_layers):
+        src, dst = f"encoder.layers.{i}", f"layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _copy_linear(out, s, f"{src}.{names['attn']}.{proj}", f"{dst}.self_attn.{proj}")
+        _copy_norm(out, s, f"{src}.{names['attn_ln']}", f"{dst}.self_attn_layer_norm")
+        _copy_linear(out, s, f"{src}.{names['fc1']}", f"{dst}.fc1")
+        _copy_linear(out, s, f"{src}.{names['fc2']}", f"{dst}.fc2")
+        _copy_norm(out, s, f"{src}.final_layer_norm", f"{dst}.final_layer_norm")
+    _copy_norm(out, s, "encoder.layer_norm", "encoder_layer_norm")
+    return out
+
+
+_FAIRSEQ_NAMES = {"conv": "0", "conv_ln": "2.1", "conv_gn": "2",
+                  "post_extract_norm": "layer_norm", "post_extract_proj": "post_extract_proj",
+                  "pos_conv": "encoder.pos_conv.0", "attn": "self_attn",
+                  "attn_ln": "self_attn_layer_norm", "fc1": "fc1", "fc2": "fc2"}
+_HF_NAMES = {"conv": "conv", "conv_ln": "layer_norm", "conv_gn": "layer_norm",
+             "post_extract_norm": "feature_projection.layer_norm",
+             "post_extract_proj": "feature_projection.projection",
+             "pos_conv": "encoder.pos_conv_embed.conv", "attn": "attention",
+             "attn_ln": "layer_norm", "fc1": "feed_forward.intermediate_dense",
+             "fc2": "feed_forward.output_dense"}
+
+
+def fairseq_encoder_to_torch(state: Mapping[str, Any], cfg: XLSRConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """The encoder's state dict from a fairseq ``Wav2Vec2Model`` state dict
+    (``module.`` prefixes stripped; others first by the caller).
+    Pretraining-only entries (quantizer, project_q, ...) are ignored."""
+    return _encoder_to_torch(strip_prefixes(state), cfg, _FAIRSEQ_NAMES)
+
+
+def hf_encoder_to_torch(state: Mapping[str, Any], cfg: XLSRConfig) -> Dict[str, torch.Tensor]:
+    """The encoder's state dict from a HuggingFace ``Wav2Vec2Model`` state
+    dict (the XLS-R layout: stable layer norm, layer-normed extractor;
+    ``wav2vec2.`` prefixes stripped)."""
+    return _encoder_to_torch(strip_prefixes(state, ("wav2vec2.",)), cfg, _HF_NAMES)
+
+
+def sae_state_to_torch(state: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The SAE's state dict from a reference ``AutoEncoderTopK`` state dict:
+    encoder.weight [M, D], encoder.bias, decoder.weight [D, M], b_dec."""
+    s = strip_prefixes(state)
+    return {"W_enc": _tensor(s[f"{prefix}encoder.weight"]).T,
+            "b_enc": _tensor(s[f"{prefix}encoder.bias"]),
+            "W_dec": _tensor(s[f"{prefix}decoder.weight"]).T,
+            "b_dec": _tensor(s[f"{prefix}b_dec"])}
+
+
+def classifier_state_to_torch(state: Mapping[str, Any], prefix: str = "classifier."
+                              ) -> Dict[str, torch.Tensor]:
+    """The head's state dict from the reference classifier ``Sequential``:
+    0 LayerNorm, 1 Linear(d, 256), 4 Linear(256, 2)."""
+    s = strip_prefixes(state)
+    out: Dict[str, torch.Tensor] = {}
+    _copy_norm(out, s, f"{prefix}0", "norm")
+    _copy_linear(out, s, f"{prefix}1", "fc1")
+    _copy_linear(out, s, f"{prefix}4", "fc2")
+    return out
+
+
+def _prefixed(prefix: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}{k}": v for k, v in state.items()}
+
+
+def detector_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """The ``Detector``'s state dict from a reference detector checkpoint's
+    ``model`` entry: ``ssl_model.model.*`` (fairseq encoder), ``sae.*``
+    and ``classifier.{0,1,4}.*``, with optional ``module.`` prefixes.
+    The CPC head is not ported (ROADMAP M6): ``use_cpc`` raises."""
+    if cfg.use_cpc:
+        raise NotImplementedError("use_cpc: the CPC head is not ported yet (ROADMAP M6)")
+    s = strip_prefixes(state)
+    enc = {k[len("ssl_model.model."):]: v for k, v in s.items()
+           if k.startswith("ssl_model.model.")}
+    out = _prefixed("encoder.", fairseq_encoder_to_torch(enc, cfg.encoder))
+    if cfg.use_sae:
+        out.update(_prefixed("sae.", sae_state_to_torch(s, prefix="sae.")))
+    out.update(_prefixed("classifier.", classifier_state_to_torch(s)))
+    return out
+
+
+def detector_state_to_reference(state: Mapping[str, torch.Tensor], cfg: ModelConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """The reference naming of a ``Detector`` state dict (the inverse of
+    ``detector_state_from_reference``), which the reference's PyTorch
+    model takes: the pos-conv weight w as ``weight_g`` = ||w|| over dims
+    0 and 1 (float64, cast back) and ``weight_v`` = w, and ``sae.k``."""
+    if cfg.use_cpc:
+        raise NotImplementedError("use_cpc: the CPC head is not ported yet (ROADMAP M6)")
+    enc_cfg = cfg.encoder
+    s = {k: _tensor(v) for k, v in state.items()}
+    out: Dict[str, torch.Tensor] = {}
+    fs = "ssl_model.model."
+    for i in range(len(enc_cfg.conv_layers)):
+        base = f"{fs}feature_extractor.conv_layers.{i}"
+        _copy_linear(out, s, f"encoder.feature_extractor.conv.{i}", f"{base}.0")
+        if enc_cfg.extractor_mode == "layer_norm" or i == 0:
+            norm = "2.1" if enc_cfg.extractor_mode == "layer_norm" else "2"
+            _copy_norm(out, s, f"encoder.feature_extractor.norm.{i}", f"{base}.{norm}")
+    _copy_norm(out, s, "encoder.post_extract_norm", f"{fs}layer_norm")
+    _copy_linear(out, s, "encoder.post_extract_proj", f"{fs}post_extract_proj")
+    w = s["encoder.pos_conv.conv.weight"]
+    w64 = w.double()
+    out[f"{fs}encoder.pos_conv.0.weight_g"] = torch.sqrt(
+        (w64 * w64).sum(dim=(0, 1), keepdim=True)).to(w.dtype)
+    out[f"{fs}encoder.pos_conv.0.weight_v"] = w
+    out[f"{fs}encoder.pos_conv.0.bias"] = s["encoder.pos_conv.conv.bias"]
+    for i in range(enc_cfg.encoder_layers):
+        src, dst = f"encoder.layers.{i}", f"{fs}encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _copy_linear(out, s, f"{src}.self_attn.{proj}", f"{dst}.self_attn.{proj}")
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            _copy_norm(out, s, f"{src}.{name}", f"{dst}.{name}")
+        for name in ("fc1", "fc2"):
+            _copy_linear(out, s, f"{src}.{name}", f"{dst}.{name}")
+    _copy_norm(out, s, "encoder.encoder_layer_norm", f"{fs}encoder.layer_norm")
+    if cfg.use_sae:
+        out["sae.encoder.weight"] = s["sae.W_enc"].T
+        out["sae.encoder.bias"] = s["sae.b_enc"]
+        out["sae.decoder.weight"] = s["sae.W_dec"].T
+        out["sae.b_dec"] = s["sae.b_dec"]
+        out["sae.k"] = torch.tensor(cfg.sae.k, dtype=torch.int64)
+    _copy_norm(out, s, "classifier.norm", "classifier.0")
+    _copy_linear(out, s, "classifier.fc1", "classifier.1")
+    _copy_linear(out, s, "classifier.fc2", "classifier.4")
+    return out
+
+
+def infer_sae_config_from_state(state: Mapping[str, Any], prefix: str = "sae.") -> SAEConfig:
+    """dict_size, activation_dim and k from a reference checkpoint's
+    weight shapes (k 128 when it holds none)."""
+    s = strip_prefixes(state)
+    dict_size, activation_dim = tuple(s[f"{prefix}encoder.weight"].shape)
+    k = int(np.asarray(_numpy(s[f"{prefix}k"])) if f"{prefix}k" in s else 128)
+    return SAEConfig(activation_dim=activation_dim, dict_size=dict_size, k=k)
+
+
+def load_pretrained_encoder(cp_path, encoder_cfg: XLSRConfig) -> Dict[str, torch.Tensor]:
+    """The encoder's state dict from a pretrained XLS-R file: an ``.npz``
+    archive, or a ``torch.save`` of a fairseq checkpoint (``{"model":
+    state, ...}``) or of a bare fairseq or HF state dict.  HF is told by
+    its ``feature_projection.`` names; ``module.``, ``w2v_encoder.``,
+    ``w2v_model.`` and ``wav2vec2.`` prefixes are stripped.
+
+    Files load with ``weights_only=True``.  Real fairseq checkpoints
+    (``xlsr2_300m.pt``) carry an argparse / omegaconf payload that this
+    unpickler refuses, and only that refusal (``UnpicklingError``) falls
+    back to the full unpickler; a truncated or corrupt file keeps its own
+    error and never reaches it."""
+    path = Path(cp_path)
+    if path.suffix == ".npz":
+        with np.load(path, allow_pickle=False) as z:
+            state: Dict[str, Any] = {k: z[k] for k in z.files}
+    else:
+        try:
+            raw = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:
+            raw = torch.load(path, map_location="cpu", weights_only=False)
+        state = raw.get("model", raw) if isinstance(raw, dict) else raw
+        state = {k: v for k, v in state.items() if torch.is_tensor(v)}
+    state = strip_prefixes(state, ("module.", "w2v_encoder.", "w2v_model.", "wav2vec2."))
+    if any("feature_projection." in k for k in state):
+        return hf_encoder_to_torch(state, encoder_cfg)
+    return fairseq_encoder_to_torch(state, encoder_cfg)

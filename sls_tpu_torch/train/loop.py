@@ -15,7 +15,10 @@ detector the way the reference does:
   background writer;
 - ``resume`` restores the parameters, moments, ``step`` and ``calls``,
   so a resumed run draws the dropout masks, RawBoost parameters and
-  shuffle of an uninterrupted one.
+  shuffle of an uninterrupted one.  It also takes the JAX package's
+  msgpack ``last.ckpt`` / ``best.ckpt`` (parameters, Adam's moments,
+  ``step`` and epoch; ``calls`` set to ``step``) and, weights only, a
+  reference PyTorch ``.pth`` / ``.pt`` dict checkpoint.
 
 The epoch loop makes no host sync per step: metric scalars fold into a
 device accumulator (masked by the step's ``finite`` flag, weighted by
@@ -38,6 +41,7 @@ processes' shards as the reference does.
 from __future__ import annotations
 
 import csv
+import re
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -47,8 +51,9 @@ import numpy as np
 import torch
 
 from sls_tpu_torch.augment.rawboost import rawboost_batch
-from sls_tpu_torch.ckpt.checkpoint import CheckpointManager, load_checkpoint
+from sls_tpu_torch.ckpt.checkpoint import CheckpointManager, is_reference_state, load_checkpoint
 from sls_tpu_torch.config import ExperimentConfig, config_to_json
+from sls_tpu_torch.convert import detector_state_from_reference
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.metrics.eer import roc_eer
 from sls_tpu_torch.models.detector import Detector
@@ -63,6 +68,7 @@ from sls_tpu_torch.train.steps import (
     restore_train_state,
     to_device,
     train_state_tree,
+    train_state_tree_from_reference,
 )
 
 CSV_FIELDS = [
@@ -216,9 +222,16 @@ class BaseTrainer:
         raise TypeError("use Trainer, not BaseTrainer")
 
     def _resume_from_torch(self, path) -> bool:
-        raise NotImplementedError(
-            f"resuming from a reference PyTorch checkpoint ({path}) comes with the weights "
-            "slice (ROADMAP M2)")
+        raise ValueError(f"no PyTorch checkpoint migration for {type(self).__name__}")
+
+    def _torch_epoch_from(self, raw, path) -> None:
+        """``start_epoch`` from a PyTorch checkpoint dict's ``epoch``, else
+        from an ``epoch_<n>`` in its file name, else unchanged."""
+        m = re.search(r"epoch[_-]?(\d+)", str(path))
+        if isinstance(raw, dict) and "epoch" in raw:
+            self.start_epoch = int(raw["epoch"]) + 1
+        elif m:
+            self.start_epoch = int(m.group(1)) + 1
 
     # -- state management ----------------------------------------------------
 
@@ -229,7 +242,9 @@ class BaseTrainer:
     def resume(self, explicit_path=None, fresh_start: bool = False) -> bool:
         """Restore from the resume chain (explicit > last > best); True if
         resumed.  The next epoch is the checkpoint's plus one.  A
-        ``.pth`` / ``.pt`` path is a reference PyTorch checkpoint."""
+        checkpoint of either package is taken (module docstring); a
+        ``.pth`` / ``.pt`` path is a reference PyTorch checkpoint, whose
+        weights alone are loaded."""
         if fresh_start:
             return False
         if explicit_path and str(explicit_path).endswith((".pth", ".pt")):
@@ -240,7 +255,10 @@ class BaseTrainer:
         if self.state is None:
             raise RuntimeError("call init_state() before resume()")
         ckpt = load_checkpoint(path)
-        self._restore_state(ckpt["state"])
+        tree = ckpt["state"]
+        if is_reference_state(tree):
+            tree = train_state_tree_from_reference(tree, self.state.names)
+        self._restore_state(tree)
         self.start_epoch = ckpt["meta"]["epoch"] + 1
         return True
 
@@ -460,6 +478,19 @@ class Trainer(BaseTrainer):
 
     def _run_eval(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.eval_step(wav)
+
+    def _resume_from_torch(self, path) -> bool:
+        """Weights only, from a reference PyTorch dict checkpoint (its
+        ``model`` entry, or the dict itself; ``module.`` prefixes
+        allowed); the moments and step stay as they are."""
+        if self.state is None:
+            raise RuntimeError("call init_state() before resume()")
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        state = raw.get("model", raw) if isinstance(raw, dict) else raw
+        self.model.load_state_dict(detector_state_from_reference(state, self.cfg.model),
+                                   strict=True)
+        self._torch_epoch_from(raw, path)
+        return True
 
 
 def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> int:

@@ -22,7 +22,7 @@ a resumed run that restores ``calls`` draws the same masks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,6 +166,57 @@ def restore_train_state(model: nn.Module, state: TrainState, tree: Dict) -> None
     state.exp_avg_sq.copy_(tree["exp_avg_sq"])
     state.step = torch.as_tensor(tree["step"], dtype=torch.int64).to(state.step.device)
     state.calls = int(tree["calls"])
+
+
+def _adam_state(tree: Any) -> Optional[Dict]:
+    """The ``scale_by_adam`` state (``count``, ``mu``, ``nu``) inside a
+    serialised optax chain, wherever ``masked`` / ``chain`` put it."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        for value in tree.values():
+            found = _adam_state(value)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_tree_from_reference(state: Dict, names: List[str]) -> Dict:
+    """A ``train_state_tree`` from a JAX package checkpoint's state
+    (``ckpt/checkpoint.py::load_checkpoint``: ``params`` already a state
+    dict, ``opt_state`` and ``step`` as the file has them), for the
+    trainable ``names`` of this run.
+
+    The reference's optimizer is optax's ``add_decayed_weights`` ->
+    ``scale_by_adam`` -> ``scale``, inside ``masked`` when the encoder is
+    frozen; its moments ``mu`` / ``nu`` map through the parameters'
+    naming into ``exp_avg`` / ``exp_avg_sq`` in ``names`` order (a frozen
+    leaf is an empty dict there, and has no moments).  ``calls`` is set
+    to ``step``: the reference seeds dropout from its step, so the
+    resumed run's masks follow from where it stopped, though not the
+    masks the reference would draw (ROADMAP §3)."""
+    from sls_tpu_torch.convert import detector_state_from_flax
+
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("the checkpoint's optimizer state holds no Adam moments")
+    mu, nu = detector_state_from_flax(adam["mu"]), detector_state_from_flax(adam["nu"])
+    missing = [n for n in names if n not in mu or n not in nu]
+    if missing:
+        raise ValueError(f"the checkpoint has no moments for {len(missing)} trainable "
+                         f"parameters of this run, e.g. {missing[:4]}")
+    extra = sorted(set(mu) - set(names))
+    if extra:
+        raise ValueError(f"the checkpoint has moments for {len(extra)} parameters this run "
+                         f"does not train, e.g. {extra[:4]}")
+    step = int(np.asarray(state["step"]))
+
+    def flat(m: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return torch.cat([m[n].reshape(-1).float() for n in names])
+
+    return {"model": state["params"], "names": list(names), "exp_avg": flat(mu),
+            "exp_avg_sq": flat(nu), "step": torch.tensor(step, dtype=torch.int64),
+            "calls": step}
 
 
 def make_optimizer(lr: float, weight_decay: float) -> AdamL2:

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, flax, optax or sls_tpu in it, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no JAX, flax, optax or sls_tpu in it, nor
+pandas, sklearn or msgpack (the card's machine has none of them), and
+its entry points run on the card unless the caller asks for the CPU."""
 
 import re
 import subprocess
@@ -22,14 +23,25 @@ PARALLEL_MODULES = ("sls_tpu_torch.parallel.distributed", "sls_tpu_torch.paralle
                     "sls_tpu_torch.parallel.sequence", "sls_tpu_torch.parallel.launch",
                     "sls_tpu_torch.parallel.workers")
 
-_BLOCKED_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu)\b(?!_torch)", re.M)
+# the offline evaluation slice's modules
+OFFLINE_MODULES = ("sls_tpu_torch.data.audio", "sls_tpu_torch.data.flac",
+                   "sls_tpu_torch.data.protocols", "sls_tpu_torch.data.mulaw",
+                   "sls_tpu_torch.data.pipeline", "sls_tpu_torch.metrics.eer",
+                   "sls_tpu_torch.scores.evaluate", "sls_tpu_torch.scores.standalone",
+                   "sls_tpu_torch.convert", "sls_tpu_torch.ckpt.msgpack",
+                   "sls_tpu_torch.ckpt.checkpoint", "sls_tpu_torch.train.loop",
+                   "sls_tpu_torch.serve.scorer")
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sls_tpu", "pandas", "sklearn", "msgpack")
+_BLOCKED_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu|pandas|sklearn|msgpack)\b(?!_torch)", re.M)
 _REFERENCE_NAME = re.compile(r"\bsls_tpu\.")
 
 
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sls_tpu'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil\n"
         "import sls_tpu_torch\n"
@@ -46,6 +58,7 @@ def test_every_module_imports_with_jax_blocked():
     assert len(names) >= 30
     assert set(LONG_CLIP_MODULES) <= names
     assert set(PARALLEL_MODULES) <= names
+    assert set(OFFLINE_MODULES) <= names
 
 
 def test_long_clip_modules_are_checked():
@@ -53,6 +66,15 @@ def test_long_clip_modules_are_checked():
                for p in PORT_FILES}
     assert set(LONG_CLIP_MODULES) <= checked
     assert set(PARALLEL_MODULES) <= checked
+    assert set(OFFLINE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("line", ["import pandas as pd", "from sklearn.metrics import roc_curve",
+                                  "import msgpack", "    from flax import serialization",
+                                  "import sls_tpu.data.flac"])
+def test_blocked_import_pattern_sees_the_missing_packages(line):
+    assert _BLOCKED_IMPORT.search(line)
+    assert not _BLOCKED_IMPORT.search("from sls_tpu_torch.ckpt import msgpack")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
