@@ -145,7 +145,37 @@ Phases:
      each EER equal to compute_eer on the in-memory scores; (g) utts/s of
      produce_scores from files (20 batches, the files listed again,
      page-cached), of BatchLoader decoding alone, and the card's busy
-     share of that run's wall time (CUDA events around each step).
+     share of that run's wall time (CUDA events around each step);
+ 16. the SLS family at full width (XLS-R-300M, the SLS head, use_sae
+     off, bf16, seeded weights, int16 wire): (a) make_sls_eval_step
+     through produce_scores at batch 36 with no hand-written kernel
+     launched, its utts/s beside phase 3's, and its log-probs held to
+     the head with fc1 in fp32 on the same hidden states, within
+     ROUTE_ENVELOPE of the reference's own bf16 rounding of fc1; (b) the
+     train step (TrainConfig defaults) at batch 14 and 36, utts/s over 5
+     steps after 2 warm-up steps and peak memory, the running statistics
+     moved once a committed step (0.9 old + 0.1 the batch's), a NaN
+     batch leaving parameters, moments, step and running statistics
+     bit-equal, one batch fitted at FIT_LR; (c) SLSTrainer fits one epoch
+     (28 utterances, 14 to validate; run directory under TMPDIR, its
+     free space checked first, deleted at the end): the CSV row,
+     last.ckpt and best.ckpt, a fresh trainer resumed bit for bit; (d) an
+     upstream-named .pth (``module.`` prefixes,
+     ``first_bn.num_batches_tracked``) written, read back bit for bit
+     (the pos-conv within POS_CONV_REL_L2) and resumed from; (e)
+     build_scorer over (c)'s run directory through BatchingEngine,
+     bit-equal to the eval step; (f) layer_gate_profile: 24 gates a row
+     in (0, 1);
+ 17. the CPC variant at full width on the flagship's weights
+     (window_hard, window 8, use_pallas, CPC steps 1, 2, 4, cpc_weight
+     0.5, batch 14): (a) the train step's utts/s beside phase 13's; (b)
+     sae_encode_fused and sae_decode_fused once a step through their
+     Functions and no other kernel; (c) the loss, the CPC loss and every
+     gradient through the kernels against their plain versions, in
+     TRAIN_ENVELOPE's form with the SAE's forward in fp64 as the
+     reference (the plain versions are the fp32 route itself), or within
+     CPC_GRAD_FLOOR of the plain step's; (d) the eval step: both kernels
+     once a batch, the CPC head never run.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -158,7 +188,7 @@ step's at batch 14 with its SAE backward GEMMs and its optimizer update
 timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
 lines.  The train figures go into the ``{"run": ...}`` line under
 ``"train"``, phase 14's under ``"trainer"``, phase 15's under
-``"offline"``.
+``"offline"``, phase 16's under ``"sls"``, phase 17's under ``"cpc"``.
 """
 
 from __future__ import annotations
@@ -1094,12 +1124,12 @@ def deterministic_algorithms(torch):
 
 
 @contextmanager
-def plain_sae_kernels(tk):
-    """The flagship's SAE kernel wrappers (rows 1 and 2) swapped for their
-    plain versions, so that the autograd Functions run the plain forward
-    (this script only; the package never swaps); put back after."""
-    plain = {name: getattr(tk, name + "_plain")
-             for name in ("sae_encode_topk_fused", "sae_decode_fused")}
+def plain_sae_kernels(tk, names=("sae_encode_topk_fused", "sae_decode_fused"), versions=None):
+    """SAE kernel wrappers (by default the flagship's, rows 1 and 2)
+    swapped for their plain versions, or for ``versions`` (name ->
+    function), so that the autograd Functions run that forward (this
+    script only; the package never swaps); put back after."""
+    plain = versions or {name: getattr(tk, name + "_plain") for name in names}
     saved = {name: getattr(tk, name) for name in plain}
     try:
         for name, fn in plain.items():
@@ -1771,6 +1801,495 @@ def phase_offline(torch, device, exp, model, batch: int, seed: int, counts, zero
     return res
 
 
+# Phases 16-17, the SLS family and the CPC variant at full width
+SLS_TRAINER_SIZES = {"cuda": (14, 28, 14), "cpu": (4, 8, 4)}  # batch, train, val utterances
+SLS_STATS_REL = 1e-6  # the running statistics against 0.9 old + 0.1 batch (fp32, one rounding)
+SLS_ZERO_FIELDS = ("train_cls_loss", "train_sae_loss", "train_cpc_loss", "val_sae_loss")
+SLS_PTH_STEP_EPOCH = 3  # the upstream .pth's epoch: a resume from it starts at 4
+# one batch fitted: at FIT_LR Adam's sign-sized first steps move fc1's
+# 22,847 inputs together, and the loss overshot at the sixth step (1.94
+# down to 0.29, then 9.60, on the H100), so the SLS fit takes a tenth
+SLS_FIT_LR = FIT_LR / 10
+# Phase 17 holds the CPC step through rows 3 and 2 to their plain versions
+# in TRAIN_ENVELOPE's form.  Both rows are fp32-accurate, and their plain
+# versions are the fp32 SAE route itself (the same fp32 matmuls), so the
+# envelope is the rounding one level up: the plain step against the same
+# step with the SAE's forward in fp64.
+CPC_STEPS = (1, 2, 4)
+# ... with a floor.  On the H100 three bias gradients, each a sum over
+# every row of a cotangent (the last two attention output projections'
+# and the classifier's first layer's), lay 3.7e-5 (relative L2) from the
+# plain step's, 14x an envelope of 2.6e-6, while the loss and the CPC
+# loss were bit-equal, the window supports equal, and the other 435
+# gradients inside the envelope.  A gradient within this relative L2 of
+# the plain step's passes too (the bound of tests/test_torch_cpc.py's
+# card test); PERF.md section 7 keeps the three open.
+CPC_GRAD_FLOOR = 1e-3
+
+
+def sls_fp32_head(torch, head, x):
+    """The SLS head's classification of fc1's input ``x`` with fc1 in fp32
+    (the rest of the head is fp32 already)."""
+    import torch.nn.functional as F
+
+    h = F.selu(F.linear(x.float(), head.fc1.weight, head.fc1.bias))
+    return torch.log_softmax(F.selu(head.fc3(h)), dim=-1)
+
+
+def sls_reference_bf16_head(torch, head, x):
+    """The reference's bf16 fc1 (flax ``Dense(dtype=bf16)``): x @ W
+    rounded to bf16, then the bias added in bf16; the rest as the head."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    h = (x.to(bf16) @ head.fc1.weight.to(bf16).t()) + head.fc1.bias.to(bf16)
+    h = F.selu(h.float())
+    return torch.log_softmax(F.selu(head.fc3(h)), dim=-1)
+
+
+def phase_sls(torch, device, enc_cfg, cut: int, batch: int, wire, wavs, seed: int, counts,
+              zero_counts, want_only, flagship_eval_utts_per_s, train_batches) -> dict:
+    """Phase 16: the SLS family at full width (module docstring).  Returns
+    the ``sls`` figures of the run line."""
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.convert import (
+        sls_detector_state_from_reference,
+        sls_detector_state_to_reference,
+    )
+    from sls_tpu_torch.data.audio import pad_or_tile
+    from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
+    from sls_tpu_torch.models.sls import (
+        SLSDetector,
+        SLSTrainer,
+        create_sls_train_state,
+        layer_gate_profile,
+        make_sls_eval_step,
+        make_sls_train_step,
+    )
+    from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
+    from sls_tpu_torch.serve.engine import BatchingEngine
+    from sls_tpu_torch.serve.scorer import build_scorer
+    from sls_tpu_torch.train.loop import produce_scores
+    from sls_tpu_torch.train.steps import dequantize_wire, dropout_generator
+
+    on_card = device.type == "cuda"
+    cfg = C.ModelConfig(encoder=enc_cfg, use_sae=False)
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
+    model = SLSDetector(cfg, device=device, cut_length=cut,
+                        generator=torch.Generator(device=device).manual_seed(seed + 16))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    res = {"fc1_inputs": model.sls_head.fc1.weight.shape[1]}
+
+    def restore():
+        model.load_state_dict(init, strict=True)
+
+    # (a) the eval step at the serving batch: no kernel, throughput, envelope
+    step = make_sls_eval_step(model, device=device)
+    step(wire[:batch])
+    sync(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        written = produce_scores(step, ArrayLoader(wire, None, batch_size=batch),
+                                 Path(tmp) / "scores.txt")
+        launches = counts()
+        ids, scores = read_score_file(Path(tmp) / "scores.txt")
+    res["launches"] = launches
+    check(written == len(wire) and len(ids) == len(wire), "one SLS score line per utterance")
+    check(bool(np.all(np.isfinite(scores)) and np.all((scores >= 0) & (scores <= 1))),
+          "every SLS score is finite and in [0, 1]")
+    check(all(c == 0 for c in launches.values()),
+          f"the SLS eval path launches no hand-written kernel: {launches}")
+    reps = 10 if on_card else 1
+    batch_wire = wire[:batch]
+    step(batch_wire)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(batch_wire)
+    sync(torch, device)
+    res["eval_utts_per_s"] = reps * batch / (time.perf_counter() - t0)
+    res["flagship_eval_utts_per_s"] = flagship_eval_utts_per_s
+    if on_card:
+        res["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        w = dequantize_wire(torch.from_numpy(batch_wire).to(device))
+        _, hiddens = model.encoder(w, return_hidden_states=True)
+        x, _ = model.sls_head.pooled(hiddens)
+        port = model.sls_head.classify(x)
+        truth = sls_fp32_head(torch, model.sls_head, x)
+        ref = sls_reference_bf16_head(torch, model.sls_head, x)
+        eval_lp = step(batch_wire)["log_probs"]
+        # for the record: fc1 as cuBLAS's bf16 linear, with its reduced-
+        # precision split-K reduction allowed (PyTorch's default) and not
+        cublas = {}
+        flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        for allowed in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allowed
+            h = torch.nn.functional.selu(model.sls_head.fc1(x).float())
+            lp = torch.log_softmax(torch.nn.functional.selu(model.sls_head.fc3(h)), dim=-1)
+            cublas[f"reduced_precision_{allowed}"] = rel_l2(lp, truth)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    env = {"port_vs_fp32": rel_l2(port, truth), "reference_bf16_vs_fp32": rel_l2(ref, truth),
+           "port_vs_reference_bf16": rel_l2(port, ref),
+           "cublas_bf16_linear_vs_fp32": cublas,
+           "eval_step_vs_pieces_max_abs": float((eval_lp - port).abs().max())}
+    res["head_envelope"] = env
+    log(f"phase 16 (a) SLS eval step at batch {batch}: {res['eval_utts_per_s']:.1f} utts/s "
+        f"(flagship {flagship_eval_utts_per_s:.1f}); launches {launches}; bf16 head against "
+        f"the fp32 head on the same hidden states (relative L2 of log-probs): {json.dumps(env)}")
+    check(env["eval_step_vs_pieces_max_abs"] == 0.0, "the eval step is the head's pieces")
+    check(env["port_vs_fp32"] <= ROUTE_ENVELOPE[0] * env["reference_bf16_vs_fp32"]
+          and env["port_vs_reference_bf16"] <= ROUTE_ENVELOPE[1] * env["reference_bf16_vs_fp32"],
+          "the bf16 head lies within ROUTE_ENVELOPE of the reference's bf16 rounding")
+    del hiddens, x
+
+    # (b) the train step at TrainConfig's batch and the serving batch
+    train = {}
+    bn = model.sls_head.first_bn
+    for b_ in train_batches:
+        restore()
+        batch_ = train_batch(torch, wavs, b_, seed + 7, device)
+        state = create_sls_train_state(model, exp)
+        t_step = make_sls_train_step(model, exp, device=device)
+        for _ in range(TRAIN_WARMUP):
+            t_step(state, *batch_, seed)
+        if on_card:
+            resident = torch.cuda.memory_allocated()  # this and the flagship's weights, moments
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        r = time_train_steps(torch, t_step, state, batch_, seed, device,
+                             TRAIN_TIMED if on_card else 1)
+        n_steps = len(r["losses"]) + 1
+        check(all(c == 0 for c in counts().values()), "the SLS train step launches no kernel")
+        check(all(math.isfinite(v) for v in r["losses"]), "every SLS train loss is finite")
+        check(int(state.step) == TRAIN_WARMUP + n_steps, "every SLS train step committed")
+        if on_card:
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            r["resident_gib"] = resident / 2**30
+        train[f"batch_{b_}"] = r
+        log(f"phase 16 (b) SLS train step, batch {b_}: {json.dumps(r)}")
+        if b_ == train_batches[0]:
+            first = (batch_, state, t_step)
+        else:
+            del state, t_step
+    batch_, state, t_step = first
+    # the running statistics move once per committed step: 0.9 old + 0.1
+    # the batch's (the same batch, at the weights the step starts from, by
+    # a forward with autograd on as the step's: under no_grad some kernels
+    # differ, and the statistics by ~2e-4; computed twice, for the
+    # forward's own run-to-run difference)
+    moves = []
+    for _ in range(2):
+        stats = []
+        for _ in range(2):
+            with torch.enable_grad():
+                stats.append(model(dequantize_wire(batch_[0]), train=True, generator=(
+                    dropout_generator(seed, state.calls, device)))["bn_stats"])
+        old = (bn.running_mean.clone(), bn.running_var.clone())
+        _, m_ = t_step(state, *batch_, seed)
+        check(bool(m_["finite"]), "the step committed")
+        for i, (name, new) in enumerate((("mean", bn.running_mean), ("var", bn.running_var))):
+            once = 0.9 * old[i] + 0.1 * stats[0][i]
+            moves.append({"stat": name, "old": float(old[i]), "new": float(new),
+                          "once": float(once), "twice": float(0.9 * once + 0.1 * stats[0][i]),
+                          "noise": float(0.1 * (stats[0][i] - stats[1][i]).abs())})
+    train["running_stats"] = moves
+    log(f"phase 16 (b) running statistics over two committed steps: {json.dumps(moves)}")
+    check(all(abs(m["new"] - m["once"]) <= max(SLS_STATS_REL * abs(m["once"]), 4 * m["noise"])
+              and abs(m["new"] - m["once"]) < abs(m["new"] - m["old"]) / 10
+              and abs(m["new"] - m["once"]) < abs(m["new"] - m["twice"]) / 10 for m in moves),
+          "the running statistics move once a committed step (0.9 old + 0.1 batch)")
+    # a batch with a NaN sample leaves everything as it was
+    wav_nan = dequantize_wire(batch_[0]).clone()
+    wav_nan[1, 1000] = float("nan")
+    before = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+              state.exp_avg.clone(), state.exp_avg_sq.clone(), state.step.clone())
+    _, m_ = t_step(state, wav_nan, *batch_[1:], seed)
+    same = (not bits_equal(torch, model.state_dict(), before[0])
+            and torch.equal(state.exp_avg.view(torch.int32), before[1].view(torch.int32))
+            and torch.equal(state.exp_avg_sq.view(torch.int32), before[2].view(torch.int32))
+            and torch.equal(state.step, before[3]))
+    train["nan_guard"] = {"finite": bool(m_["finite"]), "state_bit_equal": same}
+    check(not bool(m_["finite"]) and same,
+          "a NaN batch leaves parameters, moments, step and running statistics bit-equal")
+    del before, wav_nan, state, t_step, first
+    # one batch fitted at a larger learning rate: the loss falls
+    restore()
+    fit_exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train, lr=SLS_FIT_LR))
+    f_state = create_sls_train_state(model, fit_exp)
+    f_step = make_sls_train_step(model, fit_exp, device=device)
+    fit = [float(f_step(f_state, *batch_, seed)[1]["loss"]) for _ in range(FIT_STEPS)]
+    train["fit"] = {"lr": SLS_FIT_LR, "losses": fit}
+    log(f"phase 16 (b) NaN guard {json.dumps(train['nan_guard'])}; one batch fitted at lr "
+        f"{SLS_FIT_LR}: {fit}")
+    check(all(math.isfinite(v) for v in fit) and fit[-1] < fit[0], "the fitted SLS loss falls")
+    del f_state, f_step
+    res["train"] = train
+    restore()
+
+    # (c)-(f): SLSTrainer, an upstream .pth, serving, the gate profile
+    t_batch, n_train, n_val = SLS_TRAINER_SIZES[device.type]
+    t_exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train, batch_size=t_batch))
+
+    def utterances(n, s):
+        labels = np.random.default_rng(s).permutation(np.arange(n) % 2)
+        return to_wire(synthetic_wavs(n, cut, s), "int16"), labels
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sls_"))
+    try:
+        ckpt_bytes = 4 * (sum(t.numel() for t in model.state_dict().values())
+                          + 2 * sum(p.numel() for p in model.parameters()))
+        free = shutil.disk_usage(work).free
+        check(free >= CKPT_FILES_FREE * ckpt_bytes,
+              f"{work} must hold {CKPT_FILES_FREE * ckpt_bytes / 1e9:.1f} GB and has "
+              f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+        a = SLSTrainer(t_exp, work / "a", tensorboard=False, device=device)
+        a.model.load_state_dict(model.state_dict(), strict=True)
+        a.init_state()
+        zero_counts()
+        t0 = time.perf_counter()
+        a.fit(ArrayLoader(*utterances(n_train, seed + 161), batch_size=t_batch, shuffle=True,
+                          seed=seed),
+              ArrayLoader(*utterances(n_val, seed + 162), batch_size=t_batch), num_epochs=1)
+        fit_s = time.perf_counter() - t0
+        check(all(c == 0 for c in counts().values()), "SLSTrainer.fit launches no kernel")
+        rows = csv_rows(work / "a")
+        check(len(rows) == 1 and rows[0]["epoch"] == "0", "one SLS CSV row for epoch 0")
+        check(all(math.isfinite(float(rows[0][k])) for k in ("train_loss", "val_loss",
+                                                            "train_eer", "val_eer")),
+              "the SLS epoch's figures are finite")
+        check(all(float(rows[0][k]) == 0.0 for k in SLS_ZERO_FIELDS),
+              "the SLS row's cls / sae / cpc fields are 0, as the reference's trainer writes")
+        check(a.ckpt.last_path.exists() and a.ckpt.best_path.exists(),
+              "the SLS epoch wrote last.ckpt and best.ckpt")
+        b = SLSTrainer(dataclasses.replace(t_exp, train=dataclasses.replace(
+            t_exp.train, seed=seed + 163)), work / "b", tensorboard=False, device=device)
+        b.init_state()
+        check(bool(bits_equal(torch, b.model.state_dict(), a.model.state_dict())),
+              "trainer B starts from other weights")
+        t0 = time.perf_counter()
+        check(b.resume(a.ckpt.last_path) and b.start_epoch == 1, "B resumes at epoch 1")
+        resume_s = time.perf_counter() - t0
+        bad = bits_equal(torch, b.model.state_dict(), a.model.state_dict())
+        check(not bad and trainer_bits_equal(torch, a, b) and int(b.state.step) == int(
+            a.state.step) and b.state.calls == a.state.calls,
+              f"B has A's every tensor, running statistics included, bit for bit ({bad[:4]})")
+        res["trainer"] = {"row": rows[0], "fit_s": fit_s, "save": dict(a.ckpt.last_save),
+                          "resume_s": resume_s,
+                          "running_var": float(a.model.sls_head.first_bn.running_var)}
+        log(f"phase 16 (c) SLSTrainer, one epoch of {n_train} utterances ({n_val} to "
+            f"validate), resumed bit for bit: {json.dumps(res['trainer'])}")
+
+        # (d) an upstream-named .pth, written and read back, then resumed from
+        src = {k: v.detach().to("cpu", copy=True) for k, v in a.model.state_dict().items()}
+        ref = sls_detector_state_to_reference(src, cfg, num_batches_tracked=int(a.state.step))
+        pth = work / f"sls_epoch_{SLS_PTH_STEP_EPOCH}.pth"
+        t0 = time.perf_counter()
+        torch.save({"module." + k: v for k, v in ref.items()}, pth)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = torch.load(pth, map_location="cpu", weights_only=True)
+        W = sls_detector_state_from_reference(raw, cfg)
+        load_s = time.perf_counter() - t0
+        bad = bits_equal(torch, W, src, skip=(POS_CONV_KEY,))
+        pos = rel_l2(W[POS_CONV_KEY], src[POS_CONV_KEY])
+        check(int(raw["module.first_bn.num_batches_tracked"]) == int(a.state.step),
+              "the .pth holds first_bn.num_batches_tracked")
+        check(not bad and pos <= POS_CONV_REL_L2,
+              f"the upstream .pth reads back bit for bit, the pos-conv within "
+              f"{POS_CONV_REL_L2} ({bad[:4]}, {pos:.2e})")
+        check(b.resume(str(pth)) and b.start_epoch == SLS_PTH_STEP_EPOCH + 1,
+              "SLSTrainer.resume takes the upstream .pth")
+        check(not bits_equal(torch, b.model.state_dict(), W),
+              "the resumed trainer holds the .pth's weights")
+        res["pth"] = {"gb": pth.stat().st_size / 1e9, "save_s": save_s, "load_s": load_s,
+                      "pos_conv_rel_l2": pos}
+        log(f"phase 16 (d) upstream .pth: {json.dumps(res['pth'])}")
+        del raw, W, ref, src, b
+
+        # (e) build_scorer over A's run directory, through the engine
+        _, score_fn, _ = build_scorer(work / "a", wire_dtype="int16", batch_size=batch,
+                                      device=device)
+        clips = [wavs[i % len(wavs)] for i in range(batch)]
+        rows_ = to_wire(np.stack([pad_or_tile(c, cut) for c in clips]), "int16")
+        want = log_probs_to_scores(make_sls_eval_step(a.model, device=device)(rows_)["log_probs"])
+        with BatchingEngine(score_fn, batch, cut=cut, wire_dtype="int16",
+                            max_wait_ms=500) as engine:
+            got = np.array([f.result(timeout=120) for f in [engine.submit(c) for c in clips]])
+            stats = engine.stats().to_dict()
+        check(stats["batches"] == 1 and np.array_equal(got, want),
+              "build_scorer over the SLS run directory serves the eval step's scores bit for bit")
+        res["served"] = {"requests": stats["requests"], "batches": stats["batches"],
+                         "max_abs": float(np.abs(got - want).max())}
+
+        # (f) the layer gates
+        prof = layer_gate_profile(a.model, batch_wire, return_gates=True)
+        gates = prof.pop("gates")
+        check(gates.shape == (enc_cfg.encoder_layers, batch)
+              and bool(np.all((gates > 0) & (gates < 1))),
+              f"{enc_cfg.encoder_layers} gates a row, each in (0, 1)")
+        res["gates"] = prof
+        log(f"phase 16 (e) served {json.dumps(res['served'])}; (f) layer gates "
+            f"{json.dumps(prof)}")
+        del a, score_fn
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model, init
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_cpc(torch, tk, device, flagship, sae_cfg, batch_, wire, batch: int, seed: int,
+              counts, zero_counts, want_only, window_overlap_utts_per_s) -> dict:
+    """Phase 17: the CPC variant at full width on the flagship's weights
+    (module docstring).  Returns the ``cpc`` figures of the run line."""
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.train.steps import (
+        create_train_state,
+        dequantize_wire,
+        dropout_generator,
+        make_eval_step,
+        make_train_step,
+        train_loss,
+    )
+
+    on_card = device.type == "cuda"
+    cfg = dataclasses.replace(
+        flagship.config, use_cpc=True, cpc=C.CPCConfig(prediction_steps=CPC_STEPS),
+        sae=dataclasses.replace(sae_cfg, variant="window_hard", window_size=WINDOW))
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=batch_[0].shape[1],
+                                                            cpc_weight=0.5))
+    model = Detector(cfg, device=device,
+                     generator=torch.Generator(device=device).manual_seed(seed + 17))
+    missing, unexpected = model.load_state_dict(flagship.state_dict(), strict=False)
+    check(not unexpected and missing and all(k.startswith("cpc.") for k in missing),
+          "the CPC detector holds the flagship's weights and a seeded CPC head")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    res = {}
+
+    # (a), (b) the train step, its launches and throughput
+    state = create_train_state(model, exp)
+    step = make_train_step(model, exp, device=device)
+    _, m_ = step(state, *batch_, seed)
+    res["first_cpc_loss"] = float(m_["cpc_loss"])
+    check(math.isfinite(res["first_cpc_loss"]) and res["first_cpc_loss"] > 0,
+          "the CPC loss is live")
+    zero_counts()
+    r = time_train_steps(torch, step, state, batch_, seed, device, WINDOW_TRAIN_STEPS)
+    launches = counts()
+    n_steps = len(r["losses"]) + 1
+    if on_card:
+        want_only("CPC train step", launches,
+                  {"sae_encode_fused": n_steps, "sae_decode_fused": n_steps})
+    check(all(math.isfinite(v) for v in r["losses"]), "every CPC train loss is finite")
+    r["launches_per_step"] = {n: c / n_steps for n, c in launches.items() if c}
+    r["window_overlap_utts_per_s"] = window_overlap_utts_per_s
+    res["train"], res["launches"] = r, launches
+    log(f"phase 17 (a, b) CPC train step, batch {batch_[0].shape[0]}: {json.dumps(r)}")
+    del state, step
+
+    # (c) one step's loss, CPC loss and gradients: kernels, plain, SAE in fp64
+    model.load_state_dict(init, strict=True)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        wav, labels, valid = batch_
+        loss, _, out = train_loss(model, exp.train, dequantize_wire(wav), labels, valid,
+                                  dropout_generator(seed, 0, device))
+        loss.backward()
+        g = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), float(out["cpc_loss"].detach()), out["codes"].detach(), g
+
+    def encode_f64(x, w_enc, b_enc, b_dec):
+        return torch.relu((x.double() - b_dec.double()) @ w_enc.double()
+                          + b_enc.double()).float()
+
+    def decode_f64(codes, w_dec, b_dec):
+        return (codes.double() @ w_dec.double() + b_dec.double()).float()
+
+    rows3_2 = ("sae_encode_fused", "sae_decode_fused")
+    loss_k, cpc_k, codes_k, g_k = grads()
+    with plain_sae_kernels(tk, rows3_2):
+        zero_counts()
+        loss_p, cpc_p, codes_p, g_p = grads()
+        _, _, _, g_p2 = grads()
+        check(all(c == 0 for c in counts().values()), "the plain CPC step launches no kernel")
+    with plain_sae_kernels(tk, versions={"sae_encode_fused": encode_f64,
+                                         "sae_decode_fused": decode_f64}):
+        loss_t, cpc_t, _, g_t = grads()
+
+    def over(err, envelope):
+        return err / envelope if envelope else (0.0 if err == 0 else math.inf)
+
+    # the envelope: the plain step's distance from the fp64-SAE step, or
+    # the plain step's own run-to-run difference (cuDNN's backward sums in
+    # no fixed order), whichever is larger, as phase 12 (g) allows
+    errs = {}  # (rel L2 from the fp64-SAE step, from the plain step, the envelope)
+    for n in g_p:
+        e = max(rel_l2(g_p[n], g_t[n]), rel_l2(g_p2[n], g_p[n]))
+        errs[n] = (rel_l2(g_k[n], g_t[n]), rel_l2(g_k[n], g_p[n]), e)
+    within = {n: v[0] <= TRAIN_ENVELOPE[0] * v[2] and v[1] <= TRAIN_ENVELOPE[1] * v[2]
+              for n, v in errs.items()}
+    floored = [n for n, v in errs.items() if not within[n]
+               and v[0] <= max(TRAIN_ENVELOPE[0] * v[2], CPC_GRAD_FLOOR)
+               and v[1] <= max(TRAIN_ENVELOPE[1] * v[2], CPC_GRAD_FLOOR)]
+    worst_t = max(errs, key=lambda n: over(errs[n][0], errs[n][2]))
+    worst_p = max(errs, key=lambda n: errs[n][1])
+    with torch.inference_mode():  # the pre-activations on either side of the ReLU
+        feats = model.encoder(dequantize_wire(batch_[0])).float()
+        feats = feats.reshape(-1, cfg.sae.activation_dim)
+        sae = model.sae
+        flips = int(((tk.sae_encode_fused(feats, sae.W_enc, sae.b_enc, sae.b_dec) > 0)
+                     != (tk.sae_encode_fused_plain(feats, sae.W_enc, sae.b_enc, sae.b_dec) > 0)
+                     ).sum())
+    kp = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_sae_fp64": loss_t,
+          "cpc_loss_kernels": cpc_k, "cpc_loss_plain": cpc_p, "cpc_loss_sae_fp64": cpc_t,
+          "frames_support_differ": int(((codes_k > 0) != (codes_p > 0)).any(-1).sum()),
+          "relu_mask_flips_eval_features": flips, "tensors": len(errs),
+          "within_envelope": sum(within.values()), "held_by_floor": floored,
+          "worst_vs_fp64_over_envelope": [worst_t, over(errs[worst_t][0], errs[worst_t][2]),
+                                          *errs[worst_t]],
+          "worst_vs_plain_rel_l2": [worst_p, *errs[worst_p]],
+          "median_envelope_rel_l2": float(np.median([v[2] for v in errs.values()]))}
+    res["kernels_vs_plain"] = kp
+    log(f"phase 17 (c) CPC step, kernels against plain versions: {json.dumps(kp)}")
+    del g_k, g_p, g_p2, g_t, feats
+    check(abs(loss_k - loss_p) <= E2E_TOL and abs(cpc_k - cpc_p) <= E2E_TOL,
+          "the CPC step's loss and CPC loss through the kernels agree with the plain versions'")
+    check(all(within[n] or n in floored for n in errs),
+          "every gradient of the CPC step through the kernels lies within the envelope "
+          "(or CPC_GRAD_FLOOR of the plain step's)")
+
+    # (d) the eval path: both kernels once a batch, no CPC
+    calls = []
+    hook = model.cpc.register_forward_hook(lambda *a: calls.append(1))
+    try:
+        ev = make_eval_step(model, device=device)
+        ev(wire[:batch])
+        zero_counts()
+        n_eval = 2
+        outs = [ev(wire[i * batch:(i + 1) * batch]) for i in range(n_eval)]
+        ev_launches = counts()
+    finally:
+        hook.remove()
+    if on_card:
+        want_only("CPC eval step", ev_launches,
+                  {"sae_encode_fused": n_eval, "sae_decode_fused": n_eval})
+    check(not calls and all(bool(torch.isfinite(o["log_probs"]).all()) for o in outs),
+          "the CPC eval step never runs the CPC head")
+    res["eval"] = {"launches": ev_launches, "batches": n_eval}
+    log(f"phase 17 (d) CPC eval path, {n_eval} batches of {batch}: launches {ev_launches}")
+    del model, init
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2412,6 +2931,7 @@ def main(argv=None) -> int:
             if i == 0:
                 first_loss[b_] = float(m_["loss"])
         if on_card:
+            resident = torch.cuda.memory_allocated()  # weights, moments, what earlier phases keep
             torch.cuda.reset_peak_memory_stats()
         zero_counts()
         res = time_train_steps(torch, step, state, batch_, args.seed, device,
@@ -2420,6 +2940,7 @@ def main(argv=None) -> int:
         n_steps = len(res["losses"]) + 1
         if on_card:
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["resident_gib"] = resident / 2**30
             want_only(f"train step at batch {b_}", launches,
                       {"sae_encode_topk_fused": n_steps, "sae_decode_fused": n_steps})
         res["launches_per_step"] = {n: c / n_steps for n, c in launches.items() if c}
@@ -2776,6 +3297,31 @@ def main(argv=None) -> int:
     offline_res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 15 in {offline_res['phase_seconds']:.1f} s")
 
+    # -- phase 16: the SLS family ------------------------------------------------------
+    restore()
+    t_phase = time.perf_counter()
+    log(f"phase 16: the SLS family (XLS-R + SLS head), {layers} layers, {enc_cfg.dtype}, "
+        f"seeded weights, int16 wire; eval at batch {batch}, train at {train_batches}")
+    sls_res = phase_sls(torch, device, enc_cfg, cut, batch, wire, wavs, args.seed, counts,
+                        zero_counts, want_only, results["flagship"]["eval_utts_per_s"],
+                        train_batches)
+    results["sls"] = {"launches": sls_res["launches"]}
+    sls_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 in {sls_res['phase_seconds']:.1f} s")
+
+    # -- phase 17: the CPC variant -----------------------------------------------------
+    restore()
+    t_phase = time.perf_counter()
+    log(f"phase 17: the CPC variant (window_hard, window {WINDOW}, CPC steps {CPC_STEPS}, "
+        f"cpc_weight 0.5), the flagship's weights, batch {train_batches[0]}")
+    cpc_res = phase_cpc(torch, tk, device, model, sae_cfg, flagship_batch, wire, batch,
+                        args.seed, counts, zero_counts, want_only,
+                        train_res["window_overlap"]["utts_per_s"])
+    results["train_cpc"] = {"launches": cpc_res["launches"]}
+    results["cpc_eval"] = {"launches": cpc_res["eval"]["launches"]}
+    cpc_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 in {cpc_res['phase_seconds']:.1f} s")
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -2806,7 +3352,7 @@ def main(argv=None) -> int:
                                   for label in batch_paths},
                               "long_clip": long_res, "sequence_parallel": sp_res,
                               "train": train_res, "trainer": trainer_res,
-                              "offline": offline_res}}))
+                              "offline": offline_res, "sls": sls_res, "cpc": cpc_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

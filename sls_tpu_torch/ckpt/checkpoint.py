@@ -42,7 +42,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from sls_tpu_torch.ckpt import msgpack
-from sls_tpu_torch.convert import detector_state_from_flax
+from sls_tpu_torch.convert import batch_stats_from_flax, detector_state_from_flax
 
 PathLike = Union[str, Path]
 
@@ -99,7 +99,9 @@ def load_checkpoint(path: PathLike) -> Dict[str, Any]:
     This package's tensors are mapped from the file (copied in when
     used); a JAX package's file is read whole, its ``meta`` holding
     ``epoch``, ``metrics`` and ``config_json`` as here and its
-    ``state["params"]`` mapped to a state dict (module docstring)."""
+    ``state["params"]`` mapped to a state dict (module docstring), with
+    the running statistics of a ``batch_stats`` collection (the SLS
+    family's BatchNorm) as its buffers."""
     if is_torch_file(path):
         return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     raw = msgpack.read(path)
@@ -109,7 +111,8 @@ def load_checkpoint(path: PathLike) -> Dict[str, Any]:
             "config_json": meta_raw.get("config_json", "")}
     state = dict(raw["state"])
     if "params" in state:
-        state["params"] = detector_state_from_flax(state["params"])
+        state["params"] = {**detector_state_from_flax(state["params"]),
+                           **batch_stats_from_flax(state.get("batch_stats", {}))}
     return {"state": state, "meta": meta}
 
 

@@ -25,14 +25,23 @@ naming of ``sls_tpu/encoder/convert.py``:
 - ``hf_encoder_to_torch``: a HuggingFace ``Wav2Vec2Model`` state dict;
 - ``detector_state_from_reference``: a reference detector checkpoint's
   ``model`` entry (``ssl_model.model.*``, ``sae.*``,
-  ``classifier.{0,1,4}.*``, optional ``module.`` prefixes);
+  ``classifier.{0,1,4}.*``, with ``use_cpc`` ``cpc_proj.{0,2}.*`` and
+  ``cpc_pred.{0,2}.*``; optional ``module.`` prefixes);
+- ``sls_detector_state_from_reference``: an upstream XLS-R + SLS
+  checkpoint (``ssl_model.model.*`` and the head's ``fc0``,
+  ``first_bn``, ``fc1``, ``fc3``; ``first_bn.num_batches_tracked``,
+  which nothing here counts, is the one key dropped);
 - ``load_pretrained_encoder``: a pretrained encoder file (``.npz``,
   fairseq or HF ``.pt`` / ``.pth``).
 
 Torch and fairseq layouts agree ([out, in] linears, [out, in/g, K]
 convs), so every loaded tensor equals its source bit for bit, except the
-folded pos-conv.  ``detector_state_to_reference`` writes the reference
-naming back (the pos-conv as ``weight_g`` / ``weight_v``).
+folded pos-conv.  ``detector_state_to_reference`` and
+``sls_detector_state_to_reference`` write the reference namings back (the
+pos-conv as ``weight_g`` / ``weight_v``).  From the JAX package's SLS
+model, ``sls_detector_state_from_flax(params, batch_stats)`` adds the
+BatchNorm's running statistics (``batch_stats_from_flax``: ``mean`` /
+``var`` -> ``running_mean`` / ``running_var``).
 
 Tensors come back as views of the given arrays where those are
 writable; ``load_state_dict`` copies them.
@@ -96,6 +105,25 @@ def detector_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         key, perm = torch_entry(path, arr.ndim)
         state[key] = torch.from_numpy(arr).permute(perm)
     return state
+
+
+_RUNNING = {"mean": "running_mean", "var": "running_var"}
+
+
+def batch_stats_from_flax(batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The running statistics of a flax ``batch_stats`` collection as
+    state-dict buffers: ``.../first_bn/mean`` -> ``...first_bn.running_mean``
+    (``var`` likewise)."""
+    return {".".join(path[:-1] + (_RUNNING[path[-1]],)): _tensor(value)
+            for path, value in _leaves(batch_stats)}
+
+
+def sls_detector_state_from_flax(params: Mapping[str, Any],
+                                 batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models/sls.py::SLSDetector`` from the JAX
+    ``SLSDetector``'s variables: ``params`` (BatchNorm ``scale`` / ``bias``
+    -> ``weight`` / ``bias``) and ``batch_stats``."""
+    return {**detector_state_from_flax(params), **batch_stats_from_flax(batch_stats)}
 
 
 # -- PyTorch checkpoints ------------------------------------------------------------
@@ -242,17 +270,32 @@ def detector_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig
     """The ``Detector``'s state dict from a reference detector checkpoint's
     ``model`` entry: ``ssl_model.model.*`` (fairseq encoder), ``sae.*``
     and ``classifier.{0,1,4}.*``, with optional ``module.`` prefixes.
-    The CPC head is not ported (ROADMAP M6): ``use_cpc`` raises."""
-    if cfg.use_cpc:
-        raise NotImplementedError("use_cpc: the CPC head is not ported yet (ROADMAP M6)")
+    With ``use_cpc`` the reference's CPC head (``cpc_proj.{0,2}``,
+    ``cpc_pred.{0,2}``), which a checkpoint without one lacks: that
+    raises ``ValueError``."""
     s = strip_prefixes(state)
-    enc = {k[len("ssl_model.model."):]: v for k, v in s.items()
-           if k.startswith("ssl_model.model.")}
-    out = _prefixed("encoder.", fairseq_encoder_to_torch(enc, cfg.encoder))
+    out = _prefixed("encoder.", _encoder_from_reference(s, cfg.encoder))
     if cfg.use_sae:
         out.update(_prefixed("sae.", sae_state_to_torch(s, prefix="sae.")))
     out.update(_prefixed("classifier.", classifier_state_to_torch(s)))
+    if cfg.use_cpc:
+        if "cpc_proj.0.weight" not in s:
+            raise ValueError("use_cpc: the checkpoint has no CPC head (cpc_proj.*, cpc_pred.*)")
+        for src, dst in _CPC_NAMES:
+            _copy_linear(out, s, src, f"cpc.{dst}")
     return out
+
+
+_CPC_NAMES = (("cpc_proj.0", "proj_fc1"), ("cpc_proj.2", "proj_fc2"),
+              ("cpc_pred.0", "pred_fc1"), ("cpc_pred.2", "pred_fc2"))
+
+
+def _encoder_from_reference(s: Mapping[str, Any], cfg: XLSRConfig) -> Dict[str, torch.Tensor]:
+    """The encoder's state dict from the ``ssl_model.model.*`` entries of an
+    unprefixed reference checkpoint."""
+    enc = {k[len("ssl_model.model."):]: v for k, v in s.items()
+           if k.startswith("ssl_model.model.")}
+    return fairseq_encoder_to_torch(enc, cfg)
 
 
 def detector_state_to_reference(state: Mapping[str, torch.Tensor], cfg: ModelConfig
@@ -261,10 +304,27 @@ def detector_state_to_reference(state: Mapping[str, torch.Tensor], cfg: ModelCon
     ``detector_state_from_reference``), which the reference's PyTorch
     model takes: the pos-conv weight w as ``weight_g`` = ||w|| over dims
     0 and 1 (float64, cast back) and ``weight_v`` = w, and ``sae.k``."""
-    if cfg.use_cpc:
-        raise NotImplementedError("use_cpc: the CPC head is not ported yet (ROADMAP M6)")
-    enc_cfg = cfg.encoder
     s = {k: _tensor(v) for k, v in state.items()}
+    out = _encoder_to_reference(s, cfg.encoder)
+    if cfg.use_sae:
+        out["sae.encoder.weight"] = s["sae.W_enc"].T
+        out["sae.encoder.bias"] = s["sae.b_enc"]
+        out["sae.decoder.weight"] = s["sae.W_dec"].T
+        out["sae.b_dec"] = s["sae.b_dec"]
+        out["sae.k"] = torch.tensor(cfg.sae.k, dtype=torch.int64)
+    _copy_norm(out, s, "classifier.norm", "classifier.0")
+    _copy_linear(out, s, "classifier.fc1", "classifier.1")
+    _copy_linear(out, s, "classifier.fc2", "classifier.4")
+    if cfg.use_cpc:
+        for dst, src in _CPC_NAMES:
+            _copy_linear(out, s, f"cpc.{src}", dst)
+    return out
+
+
+def _encoder_to_reference(s: Mapping[str, torch.Tensor], enc_cfg: XLSRConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """The ``ssl_model.model.*`` entries of the encoder's ``encoder.*``
+    state (the inverse of ``_encoder_from_reference``)."""
     out: Dict[str, torch.Tensor] = {}
     fs = "ssl_model.model."
     for i in range(len(enc_cfg.conv_layers)):
@@ -290,15 +350,57 @@ def detector_state_to_reference(state: Mapping[str, torch.Tensor], cfg: ModelCon
         for name in ("fc1", "fc2"):
             _copy_linear(out, s, f"{src}.{name}", f"{dst}.{name}")
     _copy_norm(out, s, "encoder.encoder_layer_norm", f"{fs}encoder.layer_norm")
-    if cfg.use_sae:
-        out["sae.encoder.weight"] = s["sae.W_enc"].T
-        out["sae.encoder.bias"] = s["sae.b_enc"]
-        out["sae.decoder.weight"] = s["sae.W_dec"].T
-        out["sae.b_dec"] = s["sae.b_dec"]
-        out["sae.k"] = torch.tensor(cfg.sae.k, dtype=torch.int64)
-    _copy_norm(out, s, "classifier.norm", "classifier.0")
-    _copy_linear(out, s, "classifier.fc1", "classifier.1")
-    _copy_linear(out, s, "classifier.fc2", "classifier.4")
+    return out
+
+
+_SLS_LINEARS = ("fc0", "fc1", "fc3")
+_SLS_BN = ("weight", "bias", "running_mean", "running_var")
+_SLS_IGNORED = ("first_bn.num_batches_tracked",)
+
+
+def sls_head_state_from_reference(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The SLS head's state dict from the upstream head's entries (``fc0``,
+    ``first_bn``, ``fc1``, ``fc3``; ``module.`` prefixes stripped).  Any
+    other entry raises ``ValueError``, except
+    ``first_bn.num_batches_tracked``, which is dropped."""
+    s = strip_prefixes(state)
+    out: Dict[str, torch.Tensor] = {}
+    for name in _SLS_LINEARS:
+        _copy_linear(out, s, name, name)
+    for name in _SLS_BN:
+        out[f"first_bn.{name}"] = _tensor(s[f"first_bn.{name}"])
+    extra = sorted(set(s) - set(out) - set(_SLS_IGNORED))
+    if extra:
+        raise ValueError(f"unknown entries in the SLS head's state: {extra[:4]}")
+    return out
+
+
+def sls_detector_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig
+                                      ) -> Dict[str, torch.Tensor]:
+    """The ``SLSDetector``'s state dict from an upstream XLS-R + SLS
+    checkpoint (``model`` entry or bare state dict): the fairseq encoder
+    under ``ssl_model.model.*`` and the head (``sls_head_state_from_reference``),
+    with optional ``module.`` prefixes.  Other ``ssl_model.*`` entries
+    (fairseq's pretraining parts) are ignored, as the encoder loader
+    ignores them."""
+    s = strip_prefixes(state)
+    head = {k: v for k, v in s.items() if not k.startswith("ssl_model.")}
+    return {**_prefixed("encoder.", _encoder_from_reference(s, cfg.encoder)),
+            **_prefixed("sls_head.", sls_head_state_from_reference(head))}
+
+
+def sls_detector_state_to_reference(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                                    num_batches_tracked: int = 0) -> Dict[str, torch.Tensor]:
+    """The upstream naming of an ``SLSDetector`` state dict (the inverse of
+    ``sls_detector_state_from_reference``), with
+    ``first_bn.num_batches_tracked`` set to ``num_batches_tracked``."""
+    s = {k: _tensor(v) for k, v in state.items()}
+    out = _encoder_to_reference(s, cfg.encoder)
+    for name in _SLS_LINEARS:
+        _copy_linear(out, s, f"sls_head.{name}", name)
+    for name in _SLS_BN:
+        out[f"first_bn.{name}"] = s[f"sls_head.first_bn.{name}"]
+    out["first_bn.num_batches_tracked"] = torch.tensor(num_batches_tracked, dtype=torch.int64)
     return out
 
 

@@ -7,6 +7,12 @@
       -> classify sparse codes (use_sparse_features) or reconstruction
       -> mean-pool + MLP head   [B, 2] log-probs    (class 1 = bonafide)
 
+With ``use_cpc`` (and an SAE) the detector also holds a ``CPCHead``:
+``forward(..., compute_cpc=True)`` mean-pools the codes into windows of
+``sae.window_size`` frames and returns their InfoNCE loss.  The train
+step asks for it when ``use_cpc`` is set; the eval step and ``score``
+never do, as in the reference.
+
 ``forward`` returns the reference's dict.  ``score`` computes only the
 log-probs and skips the decode, which the JAX serving step gets from
 XLA's dead-code elimination.
@@ -41,6 +47,8 @@ from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.encoder.xlsr import XLSREncoder, init_weights_
 from sls_tpu_torch.heads.classifier import MeanPoolClassifier
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
+from sls_tpu_torch.sae.cpc import CPCHead
+from sls_tpu_torch.sae.sparsify import aggregate_windows_mean
 from sls_tpu_torch.sae.topk import TopKSAE, reconstruction_loss
 
 
@@ -52,14 +60,14 @@ class Detector(nn.Module):
     def __init__(self, config: ModelConfig, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.use_cpc:
-            raise NotImplementedError("the CPC head is not ported yet (ROADMAP §1)")
         dev = resolve_device(device)
         self.config = config
         self.encoder = XLSREncoder(config.encoder, device=dev)
         if config.use_sae:
             sae_dtype = torch.bfloat16 if config.sae.bf16 else torch.float32
             self.sae = TopKSAE(config.sae, dtype=sae_dtype, device=dev)
+        if config.use_cpc and config.use_sae:
+            self.cpc = CPCHead(config.cpc, config.sae.dict_size, device=dev)
         self.classifier = MeanPoolClassifier(
             config.classifier_input_dim, config.classifier_hidden,
             config.num_classes, config.classifier_dropout, device=dev)
@@ -70,6 +78,8 @@ class Detector(nn.Module):
             if config.use_sae:
                 self.sae.reset_parameters(generator)
             init_weights_(self.classifier, generator)
+            if hasattr(self, "cpc"):
+                init_weights_(self.cpc, generator)
 
     def _encode(self, wav: torch.Tensor, mesh: Optional[Mesh], train: bool = False,
                 generator: Optional[torch.Generator] = None
@@ -87,17 +97,20 @@ class Detector(nn.Module):
         return feats32, shard, frames
 
     def forward(self, wav: torch.Tensor, mesh: Optional[Mesh] = None, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                compute_cpc: bool = False) -> Dict[str, torch.Tensor]:
         """``train`` takes the training routes with dropout from
-        ``generator`` (required then).  Returns a dict with:
+        ``generator`` (required then); ``compute_cpc`` computes the CPC
+        loss when the model has the head.  Returns a dict with:
 
         log_probs  [B, 2]      log-softmax outputs (class 1 = bonafide)
         score      [B]         P(bonafide) = exp(log_probs[:, 1])
         sae_loss   []          MSE reconstruction loss (0 when no SAE)
-        cpc_loss   []          always 0 (no CPC head)
+        cpc_loss   []          InfoNCE loss (0 unless compute_cpc and use_cpc)
         features   [B, T, D]   encoder output, fp32
         codes      [B, T, M]   sparse SAE codes (when use_sae)
         recon      [B, T, D]   SAE reconstruction (when use_sae)
+        window_features [B, N, M]  the codes mean-pooled by window (with the CPC loss)
         """
         cfg = self.config
         if train and generator is None:
@@ -105,7 +118,7 @@ class Detector(nn.Module):
         feats32, shard, frames = self._encode(wav, mesh, train, generator)
         zero = torch.zeros((), dtype=torch.float32, device=feats32.device)
         out: Dict[str, torch.Tensor] = {"features": feats32}
-        sae_loss = zero
+        sae_loss = cpc_loss = zero
         if cfg.use_sae:
             codes = self.sae.encode(feats32)
             recon = self.sae.decode(codes)
@@ -119,6 +132,13 @@ class Detector(nn.Module):
             out["codes"] = codes
             out["recon"] = recon
             cls_in = codes if cfg.use_sparse_features else recon
+            if cfg.use_cpc and compute_cpc:
+                if shard is not None:
+                    raise NotImplementedError("the CPC loss under sequence parallelism: its "
+                                              "negatives span the global batch")
+                windows = aggregate_windows_mean(codes, cfg.sae.window_size)
+                cpc_loss = self.cpc(windows)
+                out["window_features"] = windows
         else:
             cls_in = feats32
         log_probs = self.classifier(cls_in, frames, generator if train else None)
@@ -127,7 +147,7 @@ class Detector(nn.Module):
         out["log_probs"] = log_probs
         out["score"] = torch.exp(log_probs[:, 1])
         out["sae_loss"] = sae_loss
-        out["cpc_loss"] = zero
+        out["cpc_loss"] = cpc_loss
         return out
 
     def score(self, wav: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 - ``topk_per_row``: per-frame TopK;
 - ``window_topk_overlap``: 50%-overlap windows with vote merging;
-- ``window_topk_hard``: non-overlapping windows.
+- ``window_topk_hard``: non-overlapping windows;
+- ``aggregate_windows_mean``: mean-pooled windows (the CPC head's input).
 
 Threshold form: the k-th largest value of each row comes from a
 sort-free 32-step binary search on the order-preserving bit pattern, and
@@ -131,3 +132,14 @@ def window_topk_hard(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
     win_mask = topk_mask(x_win.sum(dim=2), k)  # [B, nw, D]
     out = (x_win * win_mask[:, :, None, :]).reshape(B, T + pad, D)
     return out[:, :T] if pad else out
+
+
+def aggregate_windows_mean(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Mean-pool frames into non-overlapping windows: [B, T, D] -> [B, N, D].
+    The tail window is zero-padded and still divided by ``window``, as the
+    reference does."""
+    B, T, D = x.shape
+    pad = (window - T % window) % window
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return x.reshape(B, (T + pad) // window, window, D).mean(dim=2)

@@ -21,12 +21,21 @@ masks held constant.
 Under sequence parallelism (``parallel/sequence.py``) the per-timestep
 variant works on any rank's frames as they are (``row_parallel``); the
 window variants reduce over frames and need them whole.
+
+JumpReLU-style inference: ``encode_threshold`` keeps the activations
+above a threshold instead of the top k; ``calibrate_threshold`` picks a
+scalar or per-feature threshold that keeps k of M on average (the
+(1 - k/M)-quantile, linear interpolation, as ``jnp.quantile``, by
+``kthvalue``: ``torch.quantile`` refuses more than 2^24 elements, less
+than one full-width batch); ``threshold_from_state`` reads a reference
+checkpoint's calibrated ``threshold`` buffer.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -103,6 +112,12 @@ class TopKSAE(nn.Module):
             return sk.window_topk_overlap(self.pre_activations(x), cfg.k, cfg.window_size)
         return self.sparsify(self.pre_activations(x))
 
+    def encode_threshold(self, x: torch.Tensor, threshold) -> torch.Tensor:
+        """The activations above ``threshold`` (a scalar, or one per
+        feature), the rest zero: the number kept varies by frame."""
+        acts = self.pre_activations(x)
+        return acts * (acts > threshold).to(acts.dtype)
+
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         if self.config.use_pallas:
             flat = codes.reshape(-1, codes.shape[-1])
@@ -120,3 +135,51 @@ class TopKSAE(nn.Module):
 def reconstruction_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean-squared reconstruction error."""
     return torch.mean(torch.square(recon.float() - target.float()))
+
+
+def _quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q, axis=0)`` with linear interpolation, in its
+    fp32 arithmetic: position q * (n - 1) in fp32, the order statistics
+    at its floor and ceiling by ``kthvalue``, weights 1 - f and f.  NaN
+    where a column holds one."""
+    n = x.shape[0]
+    q32 = torch.tensor(q, dtype=torch.float32)
+    pos = q32 * (torch.tensor(float(n), dtype=torch.float32) - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    lo_i = int(min(max(float(lo), 0.0), n - 1))
+    hi_i = int(min(max(float(hi), 0.0), n - 1))
+    v_lo = torch.kthvalue(x, lo_i + 1, dim=0).values
+    v_hi = v_lo if hi_i == lo_i else torch.kthvalue(x, hi_i + 1, dim=0).values
+    out = v_lo * (1.0 - w_hi).to(x.device) + v_hi * w_hi.to(x.device)
+    return torch.where(torch.isnan(x).any(0), float("nan"), out)
+
+
+def calibrate_threshold(acts: torch.Tensor, k: int, per_feature: bool = False) -> torch.Tensor:
+    """A JumpReLU threshold that keeps k activations a frame on average.
+
+    ``acts``: post-ReLU encoder activations [..., M] (from
+    ``TopKSAE.pre_activations`` on held-out data).  Returns the
+    (1 - k/M)-quantile of all of them (a scalar, the reference's
+    ``threshold`` buffer) or, ``per_feature``, of each feature's column
+    ([M]: k/M of each feature's values above it, k a frame in all)."""
+    acts = acts.float()
+    m = acts.shape[-1]
+    flat = acts.reshape(-1, m)
+    q = 1.0 - k / m
+    if per_feature:
+        return _quantile_linear(flat, q)
+    return _quantile_linear(flat.reshape(-1), q)
+
+
+def threshold_from_state(state: Mapping[str, Any], prefix: str = "sae.") -> Optional[float]:
+    """The calibrated scalar ``threshold`` buffer of a reference checkpoint's
+    state dict (``module.`` prefixes allowed); None when it is missing or
+    negative (-1, never calibrated)."""
+    key = f"{prefix}threshold"
+    cleaned = {k.removeprefix("module."): v for k, v in state.items()}
+    if key not in cleaned:
+        return None
+    value = cleaned[key]
+    value = float(value.detach().cpu() if torch.is_tensor(value) else np.asarray(value))
+    return value if value >= 0.0 else None

@@ -8,10 +8,10 @@ or the JAX package's JSON) and the weights from its state (this
 package's ``model`` state dict, or the JAX package's ``params``).
 ``int8`` overrides the checkpoint's ``int8_serving`` where given: serving
 is what the int8 route is for.  ``build_scorer_from_params`` takes a
-config and a state dict instead.
+config and a state dict instead.  Either family is served: a state with
+``sls_head.`` entries is an ``SLSDetector``, any other a ``Detector``.
 
-Not ported yet: the SLS family (a checkpoint with an ``sls_head`` raises;
-ROADMAP M7) and data-parallel serving over several cards (the
+Not ported yet: data-parallel serving over several cards (the
 reference's ``mesh`` argument; ROADMAP M8).
 """
 
@@ -28,6 +28,7 @@ from sls_tpu_torch.ckpt.checkpoint import CheckpointManager, is_reference_state,
 from sls_tpu_torch.config import ExperimentConfig, config_from_dict
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.models.detector import Detector
+from sls_tpu_torch.models.sls import SLSDetector
 from sls_tpu_torch.train.steps import dequantize_wire
 
 _WIRE_NUMPY = {"float32": np.float32, "int16": np.int16, "mulaw": np.uint8}
@@ -48,8 +49,6 @@ def load_serving_parts(run_dir, checkpoint=None, int8: Optional[bool] = None
             cfg.model, encoder=dataclasses.replace(cfg.model.encoder, int8_serving=int8)))
     state = ckpt["state"]
     params = state["params"] if is_reference_state(state) else state["model"]
-    if any(k.startswith("sls_head.") for k in params):
-        raise NotImplementedError("the SLS family is not ported yet (ROADMAP M7)")
     return cfg, dict(params)
 
 
@@ -61,9 +60,17 @@ def load_serving_model(run_dir, checkpoint=None, int8: Optional[bool] = None,
     return cfg, _forward(cfg, params, resolve_device(device))
 
 
+def is_sls_state(state_dict: Mapping[str, torch.Tensor]) -> bool:
+    """Whether a state dict is of the SLS family."""
+    return any(k.startswith("sls_head.") for k in state_dict)
+
+
 def _forward(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
              dev: torch.device) -> Callable:
-    model = Detector(cfg.model, device=dev)
+    if is_sls_state(state_dict):
+        model = SLSDetector(cfg.model, device=dev, cut_length=cfg.train.cut_length)
+    else:
+        model = Detector(cfg.model, device=dev)
     model.load_state_dict(dict(state_dict), strict=True)
 
     def score_fn(wav) -> torch.Tensor:
@@ -98,10 +105,10 @@ def build_scorer_from_params(
     """(cfg, score_fn, cut) ready for BatchingEngine.
 
     ``score_fn(wav [B, cut] on the wire) -> log_probs [B, 2]`` on the
-    device, through ``Detector.score`` (no decode).  ``warmup`` runs one
-    throwaway batch per shape (``bucket_sizes`` and ``batch_size``), so
-    the first request does not pay for one-time setup (kernel build,
-    library handles)."""
+    device, through ``Detector.score`` (no decode) or
+    ``SLSDetector.score``.  ``warmup`` runs one throwaway batch per shape
+    (``bucket_sizes`` and ``batch_size``), so the first request does not
+    pay for one-time setup (kernel build, library handles)."""
     if wire_dtype not in _WIRE_NUMPY:
         raise ValueError(f"unknown wire_dtype: {wire_dtype!r}")
     score_fn = _forward(cfg, state_dict, resolve_device(device))

@@ -3,8 +3,9 @@
 
 The train step (``make_train_step``) is the reference trainer's hot loop:
 the wire decoded on the device, the forward with ``train=True``, loss =
-weighted NLL + ``sae_weight`` * SAE MSE, the backward, and one Adam
-update with L2 added to the gradient before the moments (torch's
+weighted NLL + ``sae_weight`` * SAE MSE (+ ``cpc_weight`` * InfoNCE
+with ``use_cpc``), the backward, and one Adam update with L2 added to
+the gradient before the moments (torch's
 ``Adam(lr, weight_decay)``, not AdamW; ``make_optimizer``).  The update
 is guarded on the device: when the loss is not finite, the parameters,
 both moments and the step count stay bit for bit as they were
@@ -265,11 +266,15 @@ def train_loss(model: Detector, tcfg: TrainConfig, wav: torch.Tensor, labels: to
     """(loss, cls_loss, the model's outputs) of the training forward on
     float audio ``wav``: weighted NLL at ``tcfg.loss_weights`` (or
     ``class_weights``, the same on the device) over the ``valid`` rows,
-    plus ``tcfg.sae_weight`` times the SAE loss."""
-    out = model(wav, train=True, generator=generator)
+    plus ``tcfg.sae_weight`` times the SAE loss, plus with ``use_cpc``
+    ``tcfg.cpc_weight`` times the CPC loss."""
+    compute_cpc = model.config.use_cpc
+    out = model(wav, train=True, generator=generator, compute_cpc=compute_cpc)
     weights = tcfg.loss_weights if class_weights is None else class_weights
     cls = weighted_nll(out["log_probs"], labels, weights, valid)
-    return total_loss(cls, out["sae_loss"], tcfg.sae_weight), cls, out
+    loss = total_loss(cls, out["sae_loss"], tcfg.sae_weight, out["cpc_loss"],
+                      tcfg.cpc_weight if compute_cpc else 0.0)
+    return loss, cls, out
 
 
 def make_train_step(model: Detector, cfg: ExperimentConfig,
@@ -278,8 +283,8 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
     base_seed) -> (state, metrics).  One forward with ``train=True``,
     backward and guarded Adam update (module docstring); ``state`` is
     updated in place and returned.  ``metrics`` holds loss, cls_loss,
-    sae_loss, cpc_loss (0), scores [B], correct (the valid rows the
-    argmax gets right) and finite, all on the device.  Inputs already on
+    sae_loss, cpc_loss (0 without ``use_cpc``), scores [B], correct (the
+    valid rows the argmax gets right) and finite, all on the device.  Inputs already on
     the device are used as they are."""
     dev = resolve_device(device)
     tcfg = cfg.train
@@ -300,7 +305,7 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
             "loss": loss.detach(),
             "cls_loss": cls.detach(),
             "sae_loss": out["sae_loss"].detach(),
-            "cpc_loss": out["cpc_loss"],
+            "cpc_loss": out["cpc_loss"].detach(),
             "scores": out["score"].detach(),
             "correct": ((out["log_probs"].detach().argmax(-1) == y) * ok).sum(),
             "finite": finite,

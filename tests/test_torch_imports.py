@@ -32,6 +32,11 @@ OFFLINE_MODULES = ("sls_tpu_torch.data.audio", "sls_tpu_torch.data.flac",
                    "sls_tpu_torch.ckpt.checkpoint", "sls_tpu_torch.train.loop",
                    "sls_tpu_torch.serve.scorer")
 
+# the SLS family's and the rest of the SAE family's modules
+FAMILY_MODULES = ("sls_tpu_torch.sae.cpc", "sls_tpu_torch.sae.legacy",
+                  "sls_tpu_torch.sae.geometry", "sls_tpu_torch.heads.sls",
+                  "sls_tpu_torch.models.sls", "sls_tpu_torch.analysis.sparsity")
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sls_tpu", "pandas", "sklearn", "msgpack")
 _BLOCKED_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu|pandas|sklearn|msgpack)\b(?!_torch)", re.M)
@@ -59,6 +64,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(LONG_CLIP_MODULES) <= names
     assert set(PARALLEL_MODULES) <= names
     assert set(OFFLINE_MODULES) <= names
+    assert set(FAMILY_MODULES) <= names
 
 
 def test_long_clip_modules_are_checked():
@@ -67,6 +73,7 @@ def test_long_clip_modules_are_checked():
     assert set(LONG_CLIP_MODULES) <= checked
     assert set(PARALLEL_MODULES) <= checked
     assert set(OFFLINE_MODULES) <= checked
+    assert set(FAMILY_MODULES) <= checked
 
 
 @pytest.mark.parametrize("line", ["import pandas as pd", "from sklearn.metrics import roc_curve",

@@ -35,7 +35,7 @@ from sls_tpu_torch.data.pipeline import BatchLoader, DatasetIndex
 from sls_tpu_torch.data.protocols import parse_eval_list
 from sls_tpu_torch.scores.evaluate import score_2021_df
 from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
-from sls_tpu_torch.serve.scorer import build_scorer, load_serving_parts
+from sls_tpu_torch.serve.scorer import build_scorer, is_sls_state, load_serving_parts
 from sls_tpu_torch.train.loop import Trainer
 from tests.flac_encoder import encode_flac
 
@@ -221,11 +221,19 @@ def test_load_serving_parts_int8_and_sls(run_dirs, tmp_path):
     assert all(torch.equal(params[k], params8[k]) for k in params)
     with pytest.raises(FileNotFoundError):
         load_serving_parts(tmp_path)
+    # an SLS run directory: the family is told by its sls_head entries,
+    # and the JAX package's batch_stats become the running statistics
+    kernel = np.arange(4, dtype=np.float32).reshape(2, 2)
     jax_save_checkpoint(tmp_path / "last.ckpt",
-                        {"params": {"sls_head": {"fc0": {"kernel": np.ones((2, 2), np.float32)}}}},
+                        {"params": {"sls_head": {"fc0": {"kernel": kernel}}},
+                         "batch_stats": {"sls_head": {"first_bn": {
+                             "mean": np.array([0.5], np.float32),
+                             "var": np.array([2.0], np.float32)}}}},
                         epoch=0, config_json=jax_config_to_json(_jax_cfg()))
-    with pytest.raises(NotImplementedError, match="M7"):
-        load_serving_parts(tmp_path)
+    _, sls = load_serving_parts(tmp_path)
+    assert is_sls_state(sls) and not is_sls_state(params)
+    assert torch.equal(sls["sls_head.fc0.weight"], torch.from_numpy(kernel.T))
+    assert float(sls["sls_head.first_bn.running_var"]) == 2.0
 
 
 def test_trainer_resume_reads_the_epoch_from_the_file_name(corpus, tmp_path):

@@ -172,10 +172,28 @@ def test_detector_from_torch_tensors_matches_numpy():
 
 
 def test_cpc_raises():
-    _, pm = _detector_cfgs()
-    with pytest.raises(NotImplementedError, match="M6"):
-        pconv.detector_state_from_reference(_detector_state(),
-                                            dataclasses.replace(pm, use_cpc=True))
+    """With use_cpc a checkpoint without the CPC head raises; with one, the
+    head maps by the reference's names (as the JAX package maps it) and
+    exports back."""
+    jm, pm = _detector_cfgs()
+    jm, pm = dataclasses.replace(jm, use_cpc=True), dataclasses.replace(pm, use_cpc=True)
+    with pytest.raises(ValueError, match="no CPC head"):
+        pconv.detector_state_from_reference(_detector_state(), pm)
+    rng = np.random.default_rng(7)
+    H, M = pm.cpc.hidden_dim, pm.sae.dict_size
+    cpc = {f"cpc_{name}.{i}.{p}": rng.normal(size=shape).astype(np.float32)
+           for name in ("proj", "pred") for i in (0, 2)
+           for p, shape in (("weight", (H, M if (name, i) == ("proj", 0) else H)),
+                            ("bias", (H,)))}
+    s = {**_detector_state(), **cpc}
+    got = pconv.detector_state_from_reference({"module." + k: v for k, v in s.items()}, pm)
+    model = Detector(pm, device="meta")
+    model.load_state_dict(got, strict=True, assign=True)
+    want = pconv.detector_state_from_flax(jconv.detector_state_to_flax(s, jm))
+    _assert_same({k: v for k, v in got.items() if k.startswith("cpc.")},
+                 {k: v for k, v in want.items() if k.startswith("cpc.")})
+    back = pconv.detector_state_to_reference(got, pm)
+    assert all(np.array_equal(back[k].numpy(), v) for k, v in cpc.items())
 
 
 @pytest.mark.parametrize("with_k", [True, False])
