@@ -175,7 +175,37 @@ Phases:
      TRAIN_ENVELOPE's form with the SAE's forward in fp64 as the
      reference (the plain versions are the fp32 route itself), or within
      CPC_GRAD_FLOOR of the plain step's; (d) the eval step: both kernels
-     once a batch, the CPC head never run.
+     once a batch, the CPC head never run;
+ 18. the entry points on the flagship's weights, saved as a port run
+     directory (a Trainer's whole state), with 216 DF FLAC files (phase
+     15's writer), a 2019 LA train / dev layout and In-the-Wild clips of
+     3, 12 and 40 s under TMPDIR (its free space checked first, deleted
+     at the end): (a) ``cli.main --is_eval --track DF --pallas_sae
+     --wire_int16`` in this process, rows 1 and 2 once a batch and no
+     other kernel, the score file bit-equal to ``produce_scores`` over
+     the same files, its scoring span's utts/s; (b) the same as ``python
+     -m sls_tpu_torch.cli.main``, its file equal to (a)'s, its start-up,
+     model build and weight load, and scoring seconds; (c)
+     ``--full_utterance`` (equal to ``score_full_utterance``) and
+     ``--full_utterance --unwindowed`` (row 6 once a layer on the 40 s
+     clip's T 2560 bucket, never on the others), then
+     ``--seq_parallel 4`` on four ranks sharing the card over gloo, each
+     running ``cli.main`` inside the job: row 7 once a layer at T 2560 on
+     every rank, scores within ROUTE_TOL; (d) ``cli.main`` trains
+     (``--quick_test --batch_size 14 --pallas_sae --profile_steps 2``):
+     the run directory named by ``model_tag()``, its CSV row, last.ckpt,
+     a trace in which ``op_histogram`` names rows 1 and 2,
+     ``cli.profile_diff`` and ``cli.monitor`` over it; (e) ``cli.export
+     --batch 36 --wire int16 --verify`` of the flagship, the
+     ``fused_attention`` + ``fused_frontend`` and the window-overlap run
+     directories: each graph holds its custom ops, the reloaded program
+     launches them once a call (row 9 once a layer) and is held to the
+     live scorer, ms a batch and the host's enqueue ms of both; (f)
+     ``cli.serve`` over the run directory and over the flagship's
+     artifact, as child processes: ``/healthz``, ``/score`` (PCM16),
+     ``/score_batch``, ``/score_long``, ``/stats``, each score within
+     SERVE_TOL of the score file or ``score_full_utterance``, and
+     requests/s with p50 / p99 latency at 1 and 36 clients over 10 s.
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -188,21 +218,28 @@ step's at batch 14 with its SAE backward GEMMs and its optimizer update
 timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
 lines.  The train figures go into the ``{"run": ...}`` line under
 ``"train"``, phase 14's under ``"trainer"``, phase 15's under
-``"offline"``, phase 16's under ``"sls"``, phase 17's under ``"cpc"``.
+``"offline"``, phase 16's under ``"sls"``, phase 17's under ``"cpc"``,
+phase 18's under ``"cli"``.  ``--cli-only`` runs phases 1 and 18 alone
+(a partial run, for work on the entry points: no result lines).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -2290,12 +2327,591 @@ def phase_cpc(torch, tk, device, flagship, sae_cfg, batch_, wire, batch: int, se
     return res
 
 
+# Phase 18, the entry points at full width
+CLI_SIZES = {"cuda": (216, 42, 14), "cpu": (12, 12, 4)}  # DF files, 2019 train, dev
+CLI_LONG_SECONDS = (3, 12, 40)  # In-the-Wild clips: buckets T 256, 1280 and 2560
+CLI_TRAIN_BATCH = {"cuda": 14, "cpu": 4}  # TrainConfig.batch_size; the rehearsal profiles 3 steps
+CLI_PROFILE_STEPS = 2
+CLI_FREE = 16                   # the disk must hold 16 times the weights' fp32 bytes
+LOAD_SECONDS = 10.0             # each server's load at 1 and at 36 clients
+LOAD_CLIENTS = (1, 36)
+EXPORT_TOL = 1e-3               # cli/export.py --verify's limit: the exported program
+SERVER_START_S = 600.0          # a server that prints no address within this fails
+
+
+# the CLI's progress lines: the run directory (after start-up), the
+# resumed epoch (after the model's build and the weights' load), the
+# score file (after scoring)
+CLI_MARKS = (("run_dir", "run dir:"), ("resumed", "resumed at epoch"), ("wrote", "wrote "))
+
+
+class StampedLines(io.TextIOBase):
+    """stdout while it is entered, each line kept with the time it was
+    written (and passed on to the real stdout)."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, text):
+        self._out.write(text)
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        self._out.flush()
+
+    def __enter__(self):
+        self._out = sys.stdout
+        sys.stdout = self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+
+    def marks(self, t0: float) -> dict:
+        """Seconds from ``t0`` to each of ``CLI_MARKS``' lines."""
+        return {key: t - t0 for key, pattern in CLI_MARKS
+                for t, line in self.lines if line.startswith(pattern)}
+
+
+def cli_rank(argv):
+    """One rank of the ``--seq_parallel`` job phase 18 starts with
+    ``parallel/launch.py``: ``cli.main`` inside an N-rank job (it takes
+    the job's ranks), with this rank's kernel launches."""
+    from sls_tpu_torch.cli import main as cli_main
+    from sls_tpu_torch.parallel import workers
+
+    before = workers.launch_counts()
+    rc = cli_main.main(argv)
+    return {"rc": rc, "launches": {n: c - before[n] for n, c in workers.launch_counts().items()}}
+
+
+def _http(url, data=None, headers=None, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class ServerProcess:
+    """``python -m sls_tpu_torch.cli.serve ARGS --port 0`` as a child
+    process; ``url`` once it prints its address.  ``stop`` ends it."""
+
+    def __init__(self, args, root: Path):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "sls_tpu_torch.cli.serve", *args, "--port", "0"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self.url = None
+        deadline = time.monotonic() + SERVER_START_S
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            m = re.search(r"on (http://127\.0\.0\.1:\d+)", line)
+            if m:
+                self.url = m.group(1)
+                break
+            if time.monotonic() > deadline:
+                break
+        self.start_s = time.perf_counter() - self.t0
+        if self.url is None:
+            self.stop()
+            raise RuntimeError("check failed: the server came up: " + " | ".join(self.lines[-20:]))
+        # keep reading its output, so that the pipe never fills
+        self._reader = threading.Thread(target=lambda: [self.lines.append(x.rstrip())
+                                                        for x in self.proc.stdout], daemon=True)
+        self._reader.start()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+
+
+def load_test(url: str, body: bytes, clients: int, seconds: float) -> dict:
+    """``clients`` threads posting ``body`` to /score back to back for
+    ``seconds``: requests/s and the client-side latency percentiles."""
+    lat, errors = [], []
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + seconds
+
+    def client():
+        while time.perf_counter() < stop_at:
+            t0 = time.perf_counter()
+            status, _ = _http(url + "/score", body, {"Content-Type": "application/octet-stream"})
+            with lock:
+                (lat if status == 200 else errors).append((time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    ms = np.asarray(lat)
+    return {"clients": clients, "seconds": wall, "requests": len(lat), "errors": len(errors),
+            "requests_per_s": len(lat) / wall, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_counts,
+              want_only, offline_utts_per_s, engine_utts_per_s) -> dict:
+    """Phase 18: the port's entry points at the flagship's width on its
+    weights (module docstring).  Returns the ``cli`` figures of the run
+    line, with each sub-phase's launches under ``launches``."""
+    import dataclasses as dc
+
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.ckpt.checkpoint import save_checkpoint, to_host
+    from sls_tpu_torch.cli import export as cli_export
+    from sls_tpu_torch.cli import main as cli_main
+    from sls_tpu_torch.cli import monitor as cli_monitor
+    from sls_tpu_torch.cli import profile_diff as cli_profile_diff
+    from sls_tpu_torch.data.audio import load_audio
+    from sls_tpu_torch.data.pipeline import BatchLoader, DatasetIndex, to_wire
+    from sls_tpu_torch.data.protocols import parse_eval_list
+    from sls_tpu_torch.evaluation import overlap as ev
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.parallel.launch import launch
+    from sls_tpu_torch.scores.writer import read_score_file
+    from sls_tpu_torch.serve.export import load_exported
+    from sls_tpu_torch.serve.scorer import load_serving_model
+    from sls_tpu_torch.train import profiling
+    from sls_tpu_torch.train.loop import Trainer, produce_scores
+    from sls_tpu_torch.train.steps import make_eval_step
+
+    on_card = device.type == "cuda"
+    root = Path(__file__).resolve().parent
+    n_df, n_train, n_dev = CLI_SIZES[device.type]
+    train_batch = CLI_TRAIN_BATCH[device.type]
+    res, launches = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    env_before = os.environ.get("SLS_TPU_PLATFORM")
+    if not on_card:
+        os.environ["SLS_TPU_PLATFORM"] = "cpu"  # the CLIs' own switch, for them and their children
+    servers = []
+    try:
+        db, proto, models = work / "db", work / "protocols", work / "models"
+        proto.mkdir(parents=True)
+        base = ["--database_path", str(db), "--protocols_path", str(proto),
+                "--model_dir", str(models)] + ([] if on_card else [
+                    "--tiny", "--sae_dict_size", str(exp.model.sae.dict_size),
+                    "--sae_k", str(exp.model.sae.k)])
+        eval_args = base + ["--is_eval", "--pallas_sae", "--wire_int16",
+                            "--batch_size", str(batch)]
+        cfg18 = cli_main.config_from_args(cli_main.build_parser().parse_args(eval_args))
+        cut = cfg18.train.cut_length
+        if on_card:
+            check(cfg18.model == exp.model, "the CLI's flagship config is phase 3's")
+            weights = {k: v.detach() for k, v in model.state_dict().items()}
+        else:  # --tiny: the CLI's own tiny config, seeded weights
+            weights = Detector(cfg18.model, device=device, generator=torch.Generator(
+                device=device).manual_seed(seed + 18)).state_dict()
+        weight_bytes = sum(v.numel() * 4 for v in weights.values())
+        free = shutil.disk_usage(work).free
+        res["disk"] = {"dir": str(work), "free_gb": free / 1e9, "weights_gb": weight_bytes / 1e9}
+        check(free >= CLI_FREE * weight_bytes,
+              f"{work} must hold {CLI_FREE * weight_bytes / 1e9:.1f} GB of checkpoints and "
+              f"programs and has {free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+
+        # the flagship as a port run directory: a Trainer's whole state
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg18, work / "flagship_run", tensorboard=False, device=device)
+        trainer.model.load_state_dict(weights, strict=True)
+        trainer.init_state()
+        ckpt = work / "flagship_run" / "last.ckpt"
+        save_checkpoint(ckpt, to_host(trainer._state_tree()), epoch=0,
+                        config_json=C.config_to_json(cfg18))
+        del trainer
+        # the fused-attention + fused-front-end and the window-overlap runs: weights only
+        cut_routes = cut if on_card else 4005  # the tiny fused front-end's gate
+        routes_exp = dc.replace(cfg18, model=dc.replace(cfg18.model, encoder=dc.replace(
+            cfg18.model.encoder, fused_attention=True, fused_frontend=True)),
+            train=dc.replace(cfg18.train, cut_length=cut_routes))
+        window_exp = dc.replace(cfg18, model=dc.replace(cfg18.model, sae=dc.replace(
+            cfg18.model.sae, variant="window_overlap", window_size=WINDOW)))
+        host_weights = to_host(weights)
+        for name, e in (("routes_run", routes_exp), ("window_run", window_exp)):
+            save_checkpoint(work / name / "last.ckpt", {"model": host_weights}, epoch=0,
+                            config_json=C.config_to_json(e))
+        del host_weights
+        res["run_dirs_s"] = time.perf_counter() - t0
+
+        # the 2021 DF layout (FLAC, phase 15's writer), the 2019 LA train and
+        # dev layouts, and In-the-Wild clips of 3, 12 and 40 s (WAV)
+        rng = np.random.default_rng(seed + 18)
+
+        def flac_set(split: str, ids, labels, lo: float, hi: float):
+            d = db / split / "flac"
+            d.mkdir(parents=True)
+            for u, lab in zip(ids, labels):
+                n = int(rng.uniform(lo, hi) * 16000)
+                t = np.arange(n) / 16000
+                x = 0.1 * rng.standard_normal(n) + lab * 0.3 * np.sin(
+                    2 * np.pi * rng.uniform(100, 3000) * t)
+                (d / f"{u}.flac").write_bytes(flac_bytes(
+                    [np.round(np.clip(x, -1, 1) * 32767).astype(np.int16)], 16000))
+
+        df_ids = [f"DF_E_{i:07d}" for i in range(n_df)]
+        flac_set("ASVspoof2021_DF_eval", df_ids, rng.integers(0, 2, n_df), 0.5, 10.0)
+        (proto / "ASVspoof2021.DF.cm.eval.trl.txt").write_text("".join(u + "\n" for u in df_ids))
+        for split, n, prefix, protocol in (
+                ("ASVspoof2019_LA_train", n_train, "T", "ASVspoof2019.LA.cm.train.trn.txt"),
+                ("ASVspoof2019_LA_dev", n_dev, "D", "ASVspoof2019.LA.cm.dev.trl.txt")):
+            ids = [f"LA_{prefix}_{i:07d}" for i in range(n)]
+            labels = np.arange(n) % 2
+            flac_set(split, ids, labels, 1.0, 4.0)
+            (proto / protocol).write_text("".join(
+                f"LA_{i % 20:04d} {u} - {'-' if lab else 'A01'} "
+                f"{'bonafide' if lab else 'spoof'}\n" for i, (u, lab) in enumerate(zip(ids, labels))))
+        buckets = ev.length_buckets(cfg18.model.encoder)
+        if on_card:
+            long_lengths = [16000 * s for s in CLI_LONG_SECONDS]
+        else:  # the same bucket pattern at the tiny size
+            long_lengths = [buckets[256] - 100, buckets[1280] - 100, buckets[2560] - 100]
+        wild = db / "release_in_the_wild"
+        wild.mkdir(parents=True)
+        wild_ids = [f"{i}.wav" for i in range(len(long_lengths))]
+        for w, n in zip(wild_ids, long_lengths):
+            write_wav16(wild / w, np.round(np.clip(synthetic_wavs(1, n, seed + n)[0], -1, 1)
+                                           * 32767).astype(np.int16))
+        (proto / "in_the_wild.eval.txt").write_text("".join(w + "\n" for w in wild_ids))
+        log(f"phase 18: {n_df} DF FLAC files, {n_train} + {n_dev} 2019 LA train / dev, "
+            f"In-the-Wild clips of {[n / 16000 for n in long_lengths]} s, run directories "
+            f"in {res['run_dirs_s']:.1f} s under {work}")
+
+        # the reference: produce_scores over the same files, as phase 15 scores them
+        index = DatasetIndex.for_eval(parse_eval_list(proto / "ASVspoof2021.DF.cm.eval.trl.txt"),
+                                      db / "ASVspoof2021_DF_eval")
+        ref_model = model if on_card else Detector(cfg18.model, device=device)
+        if not on_card:
+            ref_model.load_state_dict(weights, strict=True)
+        ref_step = make_eval_step(ref_model, device=device)
+        produce_scores(ref_step, BatchLoader(index, batch, cut=cut, wire_dtype="int16"),
+                       work / "ref_DF.txt")
+        ref_ids, ref_scores = read_score_file(work / "ref_DF.txt")
+        n_batches = -(-n_df // batch)
+
+        # (a) cli.main --is_eval in this process
+        out_a = work / "scores_a.txt"
+        argv_a = eval_args + ["--track", "DF", "--model_path", str(ckpt),
+                              "--eval_output", str(out_a)]
+        sync(torch, device)
+        zero_counts()
+        t0 = time.perf_counter()
+        with StampedLines() as lines_a:
+            check(cli_main.main(argv_a) == 0, "cli.main --is_eval exits 0")
+        a_s = time.perf_counter() - t0
+        marks_a = lines_a.marks(t0)
+        launches["cli_eval"] = counts()
+        if on_card:
+            want_only("cli.main --is_eval", launches["cli_eval"],
+                      {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+        ids_a, scores_a = read_score_file(out_a)
+        check(ids_a == ref_ids == df_ids, "one score line a file, in list order")
+        check(np.array_equal(scores_a, ref_scores),
+              "cli.main's score file equals produce_scores over the same files, bit for bit")
+        res["eval_in_process"] = {
+            "seconds": a_s, "files": n_df, "batches": n_batches, "marks_s": marks_a,
+            "scoring_utts_per_s": n_df / (marks_a["wrote"] - marks_a["resumed"]),
+            "launches": launches["cli_eval"]}
+        log(f"phase 18 (a) cli.main --is_eval --track DF: {n_df} files in {a_s:.2f} s "
+            f"(its lines at {json.dumps(marks_a)} s), launches {launches['cli_eval']}; "
+            f"bit-equal to produce_scores")
+
+        # (b) python -m sls_tpu_torch.cli.main, as a user runs it
+        out_b = work / "scores_b.txt"
+        argv_b = eval_args + ["--track", "DF", "--model_path", str(ckpt),
+                              "--eval_output", str(out_b)]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "sls_tpu_torch.cli.main", *argv_b],
+                                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        marks, lines = {}, []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            for key, pattern in CLI_MARKS:
+                if line.startswith(pattern):
+                    marks[key] = time.perf_counter() - t0
+        rc = proc.wait(timeout=600)
+        b_s = time.perf_counter() - t0
+        check(rc == 0, f"python -m sls_tpu_torch.cli.main exits 0: {lines[-10:]}")
+        check(set(marks) == {"run_dir", "resumed", "wrote"}, f"the CLI's progress lines: {lines}")
+        ids_b, scores_b = read_score_file(out_b)
+        check(ids_b == ids_a and np.array_equal(scores_b, scores_a),
+              "the subprocess's score file equals the in-process one")
+        res["eval_subprocess"] = {
+            "wall_s": b_s, "startup_s": marks["run_dir"],
+            "model_and_weight_load_s": marks["resumed"] - marks["run_dir"],
+            "build_s": "in scoring: phase 1 built the libraries in the checkout, and the "
+                       "child loads them at its first launch",
+            "scoring_s": marks["wrote"] - marks["resumed"],
+            "scoring_note": "a fresh CUDA process: its first batch pays the process's "
+                            "one-time costs (context, library handles, lazy kernel loads)",
+            "exit_s": b_s - marks["wrote"],
+            "scoring_utts_per_s": n_df / (marks["wrote"] - marks["resumed"]),
+            "phase_15_produce_scores_utts_per_s": offline_utts_per_s}
+        log(f"phase 18 (b) python -m sls_tpu_torch.cli.main: {json.dumps(res['eval_subprocess'])}")
+
+        # (c) long clips: --full_utterance, --unwindowed, and --seq_parallel on ranks
+        wild_args = eval_args + ["--track", "In-the-Wild", "--model_path", str(ckpt)]
+        wavs_wild = [load_audio(wild / w) for w in wild_ids]
+        long_res = {}
+        for label, extra in (("full_utterance", ["--full_utterance"]),
+                             ("unwindowed", ["--full_utterance", "--unwindowed"])):
+            out = work / f"wild_{label}.txt"
+            sync(torch, device)
+            zero_counts()
+            t0 = time.perf_counter()
+            check(cli_main.main(wild_args + extra + ["--eval_output", str(out)]) == 0,
+                  f"cli.main --{label} exits 0")
+            got_ids, got = read_score_file(out)
+            launches[f"cli_{label}"] = counts()
+            long_res[label] = {"seconds": time.perf_counter() - t0,
+                               "scores": dict(zip(got_ids, got.tolist())),
+                               "launches": launches[f"cli_{label}"]}
+            check(got_ids == wild_ids and bool(np.all(np.isfinite(got))),
+                  f"--{label}: a finite score a clip, in list order")
+        n_windows = sum(len(ev.extract_windows(w, cut)) for w in wavs_wild)
+        t_buckets = [ev.unwindowed_batch(w, buckets)[1] for w in wavs_wild]
+        flash = sum(cfg18.model.encoder.encoder_layers for t in t_buckets
+                    if t >= cfg18.model.encoder.flash_long_t)
+        if on_card:
+            check(t_buckets == [256, 1280, 2560], f"the clips' buckets {t_buckets}")
+            want_only("cli.main --full_utterance", launches["cli_full_utterance"],
+                      {"sae_encode_topk_fused": -(-n_windows // batch)})
+            want_only("cli.main --full_utterance --unwindowed", launches["cli_unwindowed"],
+                      {"sae_encode_topk_fused": len(wild_ids), "flash_attention_long": flash})
+        # the CLI's windowed scores against score_full_utterance, clip by clip
+        full = [ev.score_full_utterance(ref_model, w, window=cut, batch_size=batch,
+                                        device=device)["score"] for w in wavs_wild]
+        d_full = max(abs(long_res["full_utterance"]["scores"][u] - s)
+                     for u, s in zip(wild_ids, full))
+        check(d_full <= SERVE_TOL, "--full_utterance equals score_full_utterance clip by clip")
+        long_res["full_utterance"]["vs_score_full_utterance_max_abs"] = d_full
+        if on_card:
+            torch.cuda.empty_cache()
+        sp_argv = wild_args + ["--full_utterance", "--unwindowed", "--seq_parallel",
+                               str(SP_RANKS), "--eval_output", str(work / "wild_sp.txt")]
+        t0 = time.perf_counter()
+        ranks = launch(cli_rank, SP_RANKS, (sp_argv,), device_type=device.type,
+                       timeout_s=RANKS_TIMEOUT_S)
+        sp_s = time.perf_counter() - t0
+        sp_ids, sp_scores = read_score_file(work / "wild_sp.txt")
+        unw = long_res["unwindowed"]["scores"]
+        d_sp = max(abs(s - unw[u]) for u, s in zip(sp_ids, sp_scores))
+        check(all(r["rc"] == 0 for r in ranks), "every rank's cli.main exits 0")
+        check(sp_ids == wild_ids, "the primary wrote a score a clip")
+        check(d_sp <= ROUTE_TOL, "--seq_parallel scores agree with --unwindowed's")
+        if on_card:
+            for r, rank in enumerate(ranks):
+                want_only(f"--seq_parallel rank {r}", rank["launches"],
+                          {"sp_flash_attention_long": flash})
+        launches["cli_seq_parallel"] = ranks[0]["launches"]
+        long_res["seq_parallel"] = {"ranks": SP_RANKS, "seconds": sp_s,
+                                    "vs_unwindowed_max_abs": d_sp,
+                                    "launches_by_rank": [r["launches"] for r in ranks]}
+        long_res["buckets"] = t_buckets
+        res["long_clips"] = long_res
+        log(f"phase 18 (c) long clips: {json.dumps(long_res)}")
+
+        # (d) training through the CLI, with a profile
+        train_models = work / "train_models"
+        train_argv = base + ["--model_dir", str(train_models), "--quick_test",
+                             "--batch_size", str(train_batch),
+                             "--pallas_sae", "--profile_steps", str(CLI_PROFILE_STEPS),
+                             "--num_epochs", "1"]
+        if on_card:
+            torch.cuda.empty_cache()
+        zero_counts()
+        t0 = time.perf_counter()
+        check(cli_main.main(train_argv) == 0, "cli.main trains and exits 0")
+        train_s = time.perf_counter() - t0
+        launches["cli_train"] = counts()
+        tag = cli_main.config_from_args(cli_main.build_parser().parse_args(train_argv)).model_tag()
+        run_dir = train_models / tag
+        steps = min(5, -(-n_train // train_batch))
+        vals = min(5, -(-n_dev // train_batch))
+        if on_card:
+            want_only("cli.main training", launches["cli_train"],
+                      {"sae_encode_topk_fused": steps + vals, "sae_decode_fused": steps + vals})
+        check(run_dir.is_dir() and sorted(p.name for p in train_models.iterdir()) == [tag],
+              f"the run directory is <model_dir>/{tag}")
+        rows = cli_monitor.read_log(run_dir)
+        check(len(rows) == 1 and (run_dir / "last.ckpt").exists(),
+              "one CSV row and last.ckpt")
+        trace_dir = run_dir / "profile"
+        hist = profiling.op_histogram(trace_dir, lane_filter="kernel" if on_card else "cpu_op",
+                                      group=False)
+        sae_names = ({"row 1": "encode_bf16_wgmma_kernel", "row 2": "decode_stream_kernel"}
+                     if on_card else {"row 1": "sls_tpu_torch::sae_encode_topk",
+                                      "row 2": "sls_tpu_torch::sae_decode"})
+        found = {row: sorted(n for n in hist if name in n) for row, name in sae_names.items()}
+        check(all(found.values()), f"the profile names both SAE kernels: {found}")
+        with contextlib.redirect_stdout(io.StringIO()) as diff_out:
+            rc_diff = cli_profile_diff.main([str(trace_dir), str(trace_dir), "--json"]
+                                            + ([] if on_card else ["--lane", "cpu_op"]))
+            rc_top = cli_profile_diff.main([str(trace_dir), "--top", "8"]
+                                           + ([] if on_card else ["--lane", "cpu_op"]))
+            rc_mon = cli_monitor.main(["--run_dir", str(run_dir)])
+        check(rc_diff == rc_top == rc_mon == 0, "profile_diff and monitor exit 0")
+        top = sorted(hist.items(), key=lambda kv: -kv[1]["ms"])[:8]
+        res["train"] = {"seconds": train_s, "run_dir": tag, "csv_row": rows[0],
+                        "steps": steps, "validation_batches": vals,
+                        "launches": launches["cli_train"],
+                        "profile_sae_kernels": {row: {n: hist[n] for n in names}
+                                                for row, names in found.items()},
+                        "profile_top_ms": {n[:80]: v["ms"] for n, v in top},
+                        "monitor_and_profile_diff_output_lines": len(
+                            diff_out.getvalue().splitlines())}
+        log(f"phase 18 (d) cli.main training: {json.dumps(res['train'])}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+        # (e) export: cli.export --verify, then the graphs and the reloaded programs
+        if on_card:
+            torch.cuda.empty_cache()
+        export_res = {}
+        wire_batch = to_wire(synthetic_wavs(batch, cut, seed + 19), "int16")
+        for name, run, extra, want_ops, per_call in (
+                ("flagship", work / "flagship_run", [], ["sae_decode", "sae_encode_topk"],
+                 {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}),
+                ("routes", work / "routes_run", [], ["frontend_tail", "fused_attention",
+                                                     "sae_decode", "sae_encode_topk"],
+                 {"sae_encode_topk_fused": 1, "sae_decode_fused": 1, "frontend_tail_fused": 1,
+                  "fused_attention": cfg18.model.encoder.encoder_layers}),
+                ("window_overlap", work / "window_run", [],
+                 ["sae_decode", "sae_encode", "window_vote"],
+                 {"sae_encode_fused": 1, "window_vote_fused": 1, "sae_decode_fused": 1})):
+            art = work / f"art_{name}"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli_export.main([str(run), "--out", str(art), "--batch", str(batch),
+                                      "--wire", "int16", "--verify", *extra])
+            export_s = time.perf_counter() - t0
+            verify = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(rc == 0, f"cli.export --verify exits 0 for {name}: {out.getvalue()[-500:]}")
+            manifest, fwd = load_exported(art)
+            check(manifest["ops"] == [f"sls_tpu_torch::{o}" for o in want_ops],
+                  f"{name}: the exported graph holds {want_ops}, has {manifest['ops']}")
+            _, live = load_serving_model(run, device=device)
+            w_cut = wire_batch if manifest["cut"] == cut else to_wire(
+                synthetic_wavs(batch, manifest["cut"], seed + 19), "int16")
+            fwd(w_cut)  # one-time setup outside the counted call
+            sync(torch, device)
+            zero_counts()
+            got = fwd(w_cut)
+            sync(torch, device)
+            call_launches = counts()
+            want = live(w_cut)
+            diff = float((got.double() - want.double()).abs().max())
+            check(diff <= EXPORT_TOL, f"{name}: the reloaded program within {EXPORT_TOL} of "
+                                      f"the live scorer ({diff:.3e})")
+            if on_card:
+                want_only(f"{name}: one call of the exported program", call_launches, per_call)
+            launches[f"cli_export_{name}"] = call_launches
+            reps = 10 if on_card else 1
+            ms_exported = timed(torch, lambda: fwd(w_cut), device, reps)
+            ms_live = timed(torch, lambda: live(w_cut), device, reps)
+            enqueue = {}
+            for key, fn in (("exported_enqueue_ms", fwd), ("live_enqueue_ms", live)):
+                sync(torch, device)  # the host's time to queue one call, the device idle
+                t_q = time.perf_counter()
+                fn(w_cut)
+                enqueue[key] = (time.perf_counter() - t_q) * 1e3
+                sync(torch, device)
+            export_res[name] = {
+                "export_and_verify_s": export_s, "verify_max_abs_diff": verify[
+                    "verify_max_abs_diff"], "program_gb": (art / "forward.pt2").stat().st_size / 1e9,
+                "ops": manifest["ops"], "bit_equal_to_live": diff == 0.0, "max_abs_diff": diff,
+                "launches_per_call": call_launches, "exported_ms": ms_exported,
+                "live_ms": ms_live, "exported_over_live": ms_exported / ms_live, **enqueue}
+            log(f"phase 18 (e) export {name}: {json.dumps(export_res[name])}")
+            del fwd, live
+            if on_card:
+                torch.cuda.empty_cache()
+        res["export"] = export_res
+
+        # (f) HTTP: cli.serve over the run directory and over the flagship's artifact
+        http_res = {}
+        sample = [i for i in range(n_df)][:6]
+        decoded = {i: load_audio(index.paths[i]) for i in sample}
+        for label, serve_args in (
+                ("run_dir", ["--run_dir", str(work / "flagship_run"), "--batch", str(batch),
+                             "--wire", "int16"]),
+                ("from_export", ["--from_export", str(work / "art_flagship")])):
+            srv = ServerProcess(serve_args, root)
+            servers.append(srv)
+            url = srv.url
+            h = {"startup_s": srv.start_s}
+            check(_http(url + "/healthz") == (200, {"ok": True}), f"{label}: /healthz")
+            got = []
+            for i in sample:
+                status, out = _http(url + "/score", to_wire(decoded[i], "int16").astype(
+                    "<i2").tobytes(), {"Content-Type": "application/octet-stream",
+                                       "X-Sample-Rate": "16000"})
+                check(status == 200, f"{label}: /score answers")
+                got.append(out["score"])
+            d_score = float(np.abs(np.asarray(got) - ref_scores[sample]).max())
+            status, out = _http(url + "/score_batch", json.dumps(
+                {"wavs": [decoded[i].tolist() for i in sample[:3]],
+                 "sample_rate": 16000}).encode(), {"Content-Type": "application/json"})
+            check(status == 200, f"{label}: /score_batch answers")
+            d_batch = float(np.abs(np.asarray(out["scores"]) - ref_scores[sample[:3]]).max())
+            long_wav = wavs_wild[-1]
+            status, out = _http(url + "/score_long", to_wire(long_wav, "int16").astype(
+                "<i2").tobytes(), {"Content-Type": "application/octet-stream",
+                                   "X-Aggregate": "mean"})
+            check(status == 200 and out["n_windows"] == len(ev.extract_windows(long_wav, cut)),
+                  f"{label}: /score_long answers with every window")
+            d_long = abs(out["score"] - full[-1])
+            status, stats = _http(url + "/stats")
+            check(status == 200 and stats["requests"] >= len(sample) + 3, f"{label}: /stats")
+            h.update(score_vs_file_max_abs=d_score, score_batch_vs_file_max_abs=d_batch,
+                     score_long_vs_score_full_utterance_abs=d_long)
+            check(max(d_score, d_batch, d_long) <= SERVE_TOL,
+                  f"{label}: every endpoint's score equals the offline one")
+            body = to_wire(synthetic_wavs(1, cut, seed + 20)[0], "int16").astype("<i2").tobytes()
+            for clients in LOAD_CLIENTS:
+                h[f"load_{clients}"] = load_test(url, body, clients,
+                                                 LOAD_SECONDS if on_card else 1.0)
+            status, h["stats_after"] = _http(url + "/stats")
+            srv.stop()
+            h["engine_utts_per_s_phase_3"] = engine_utts_per_s
+            http_res[label] = h
+            log(f"phase 18 (f) cli.serve {label}: {json.dumps(h)}")
+        res["http"] = http_res
+    finally:
+        for srv in servers:
+            srv.stop()
+        if env_before is None:
+            os.environ.pop("SLS_TPU_PLATFORM", None)
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = launches
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print each path's eval-step device time by kernel")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="phases 1 and 18 alone, for work on the entry points (a partial "
+                         "run: it prints no result lines)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
                          "parent's): phase 2 times its wrappers of rows 1-5 and 8 beside "
@@ -2376,6 +2992,32 @@ def main(argv=None) -> int:
     exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
     frames = enc_cfg.num_frames(cut)
 
+    modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
+               **{n: tf for n in FRONTEND_KERNELS}}
+    wrappers = {name: getattr(modules[name], name) for name in KERNELS}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def want_only(label, launches, expected):
+        want = {n: 0 for n in KERNELS}
+        want.update(expected)
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+
+    if args.cli_only:
+        log("--cli-only: phase 18 alone on the flagship's seeded weights (a partial run: no "
+            "result lines)")
+        model = Detector(cfg, device=device,
+                         generator=torch.Generator(device=device).manual_seed(args.seed))
+        phase_cli(torch, device, model, exp, batch, args.seed, counts, zero_counts, want_only,
+                  None, None)
+        log(f"phase 18 in {time.perf_counter() - t_start:.1f} s (with phase 1)")
+        return 0
+
     # -- phase 2: kernels against their plain versions ----------------------
     shape = (batch, frames, sae_cfg.activation_dim, sae_cfg.dict_size, sae_cfg.k)
     log(f"phase 2: kernels at N={batch * frames} ({batch}x{frames}) D={shape[2]} "
@@ -2393,17 +3035,7 @@ def main(argv=None) -> int:
         f"samples, {enc_cfg.conv_layers[0][0]} channels, {enc_cfg.dtype}")
     rows.append(phase_frontend(torch, tf, xlsr, enc_cfg, wavs[:batch], device,
                                iters=20 if on_card else 2, parent=parent))
-    modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
-               **{n: tf for n in FRONTEND_KERNELS}}
-    wrappers = {name: getattr(modules[name], name) for name in KERNELS}
     per_batch = path_kernels(enc_cfg.encoder_layers)
-
-    def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
 
     reps = 10 if on_card else 1
 
@@ -2913,11 +3545,6 @@ def main(argv=None) -> int:
             for n, p_ in model.named_parameters():
                 p_.copy_(init[n])
 
-    def want_only(label, launches, expected):
-        want = {n: 0 for n in KERNELS}
-        want.update(expected)
-        check(launches == want, f"{label}: launches {launches}, want {want}")
-
     train_res, first_loss = {}, {}
     train_launches = {n: 0 for n in KERNELS}
     flagship_batch = None
@@ -3322,6 +3949,21 @@ def main(argv=None) -> int:
     cpc_res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 17 in {cpc_res['phase_seconds']:.1f} s")
 
+    # -- phase 18: the entry points ----------------------------------------------------
+    restore()
+    if on_card:
+        torch.cuda.empty_cache()  # the CLIs' processes and ranks share the card
+    t_phase = time.perf_counter()
+    log(f"phase 18: the entry points (cli.main eval, long clips, --seq_parallel {SP_RANKS}, "
+        f"training; cli.export; cli.serve) on the flagship's weights, batch {batch}")
+    cli_res = phase_cli(torch, device, model, exp, batch, args.seed, counts, zero_counts,
+                        want_only, offline_res["speed"]["produce_scores_utts_per_s"],
+                        results["flagship"]["score_utts_per_s"])
+    for label, launched in cli_res.pop("launches").items():
+        results[label] = {"launches": launched}
+    cli_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 in {cli_res['phase_seconds']:.1f} s")
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -3352,7 +3994,8 @@ def main(argv=None) -> int:
                                   for label in batch_paths},
                               "long_clip": long_res, "sequence_parallel": sp_res,
                               "train": train_res, "trainer": trainer_res,
-                              "offline": offline_res, "sls": sls_res, "cpc": cpc_res}}))
+                              "offline": offline_res, "sls": sls_res, "cpc": cpc_res,
+                              "cli": cli_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,6 +196,30 @@ class ExperimentConfig:
     track: str = "LA"  # LA | DF | In-the-Wild
     comment: Optional[str] = None
 
+    def model_tag(self) -> str:
+        """Run-directory name encoding the experiment, the JAX package's
+        string (the reference's tag scheme), so that a run of either
+        package with the same flags lands in the same directory."""
+        if not self.model.use_sae:
+            tag = (f"sls_{self.track}_e{self.train.num_epochs}"
+                   f"_bs{self.train.batch_size}_lr{self.train.lr}")
+            if self.comment:
+                tag += f"_{self.comment}"
+            return tag
+        variant = {"per_timestep": "pt", "window_overlap": "win",
+                   "window_hard": "hardwin"}[self.model.sae.variant]
+        tag = (f"topk_sae_{variant}_{self.track}_e{self.train.num_epochs}"
+               f"_bs{self.train.batch_size}_lr{self.train.lr}"
+               f"_saeW{self.train.sae_weight}_dict{self.model.sae.dict_size}"
+               f"_k{self.model.sae.k}")
+        if self.model.sae.variant != "per_timestep":
+            tag += f"_w{self.model.sae.window_size}"
+        if self.model.use_cpc:
+            tag += f"_cpc{self.train.cpc_weight}"
+        if self.comment:
+            tag += f"_{self.comment}"
+        return tag
+
 
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
                 torch.float16: "float16"}

@@ -32,8 +32,11 @@ it; the tests and ``chip_smoke.py`` hold the kernel to it).  Each
 wrapper takes its plain PyTorch version (``*_plain``, beside it) for a
 tensor on the CPU, and launches the kernel for a CUDA tensor or raises;
 there is no fallback.  ``<wrapper>.launches`` counts kernel launches.
-``attention_reference`` and ``sp_block_q`` are own copies of the
-reference's helpers.
+``fused_attention``, the one a fixed-shape serving forward reaches, goes
+through the custom op ``sls_tpu_torch::fused_attention``
+(``kernels/ops.py``), so that ``torch.export`` keeps the kernel in a
+serving program.  ``attention_reference`` and ``sp_block_q`` are own
+copies of the reference's helpers.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Optional
 import torch
 
 from sls_tpu_torch.kernels import build
+from sls_tpu_torch.kernels.ops import define
 from sls_tpu_torch.parallel.distributed import all_gather_cat
 
 _P = ctypes.c_void_p
@@ -297,8 +301,15 @@ def fused_attention(q, k, v) -> torch.Tensor:
     returns [B, T, H, Dh] in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"fused_attention takes [B, T, H, Dh], got {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+    return _fused_attention_op(q, k, v)
+
+
+fused_attention.launches = 0
+
+
+def _fused_attention_cuda(q, k, v) -> torch.Tensor:
     shape = q.shape
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.shape != shape or not t.is_contiguous():
@@ -308,7 +319,12 @@ def fused_attention(q, k, v) -> torch.Tensor:
     return out
 
 
-fused_attention.launches = 0
+# ``sls_tpu_torch::fused_attention`` (``kernels/ops.py``): the short form on
+# a CUDA tensor, the plain version on a CPU one
+_fused_attention_op = define(
+    "fused_attention", "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    cuda=_fused_attention_cuda, cpu=lambda q, k, v: fused_attention_plain(q, k, v),
+    fake=lambda q, k, v: torch.empty_like(q, memory_format=torch.contiguous_format))
 
 
 def fused_attention_heads(q, k, v, num_heads: int, h_blk: int = 2) -> torch.Tensor:

@@ -13,9 +13,10 @@ bias and norm.
 The CUDA kernel takes C = 512 (XLS-R's width) in bf16 or fp32 and tiles
 time on its own terms; ``frames_per_tile`` only keeps the reference's
 check; ``level_pitches`` gives the bf16 route's padded levels.  The
-wrapper takes the plain version for a tensor on the CPU, and
-launches the kernel for a CUDA tensor or raises; there is no fallback.
-``frontend_tail_fused.launches`` counts calls that launched.
+wrapper calls the custom op ``sls_tpu_torch::frontend_tail``
+(``kernels/ops.py``), which takes the plain version for a tensor on the
+CPU and launches the kernel for a CUDA tensor or raises; there is no
+fallback.  ``frontend_tail_fused.launches`` counts calls that launched.
 ``tail_lengths``, ``required_input``, ``choose_tile`` and
 ``fp32_layer_norm`` are own copies of the reference's helpers (the
 encoder imports ``fp32_layer_norm`` from here).
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from sls_tpu_torch.kernels import build
+from sls_tpu_torch.kernels.ops import define
 
 Spec = Tuple[int, int]  # (kernel, stride) of one tail conv layer
 
@@ -245,15 +247,46 @@ def frontend_tail_fused(h0, weights, bias_stack, ln_scale, ln_bias, *,
     n_copy = -(-required_input(f, specs) // 8) * 8
     if (t_out - f) * total_stride + n_copy > n0:
         raise ValueError(f"aligned tile read out of bounds: f={f} n0={n0} specs={specs}")
-    if h0.device.type == "cpu":
-        return frontend_tail_fused_plain(h0, weights, bias_stack, ln_scale, ln_bias,
-                                         specs=specs, approx_gelu=approx_gelu,
-                                         out_dtype=out_dtype, eps=eps)
-    if h0.device.type != "cuda":
+    if h0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {h0.device}")
-    out = _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps)
-    frontend_tail_fused.launches += 1
+    flat = [int(v) for sp in specs for v in sp]
+    out = _frontend_op(h0, list(weights), bias_stack, ln_scale, ln_bias, flat,
+                       bool(approx_gelu), float(eps))
     return out.to(out_dtype)
 
 
 frontend_tail_fused.launches = 0
+
+
+# -- custom op ----------------------------------------------------------------
+#
+# ``sls_tpu_torch::frontend_tail`` (``kernels/ops.py``): the kernel on a CUDA
+# tensor, the plain version on a CPU one, in h0's dtype and contiguous, as
+# the fake says; ``specs`` flat as (k_1, s_1, k_2, s_2, ...).
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Spec, ...]:
+    return tuple((flat[i], flat[i + 1]) for i in range(0, len(flat), 2))
+
+
+def _frontend_op_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps):
+    out = _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, _pairs(specs),
+                         approx_gelu, eps)
+    frontend_tail_fused.launches += 1
+    return out
+
+
+def _frontend_op_fake(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps):
+    B, n0, c = h0.shape
+    return h0.new_empty((B, tail_lengths(n0, _pairs(specs))[-1], c))
+
+
+_frontend_op = define(
+    "frontend_tail",
+    "(Tensor h0, Tensor[] weights, Tensor bias_stack, Tensor ln_scale, Tensor ln_bias, "
+    "int[] specs, bool approx_gelu, float eps) -> Tensor",
+    cuda=_frontend_op_cuda,
+    cpu=lambda h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps:
+    frontend_tail_fused_plain(h0, weights, bias_stack, ln_scale, ln_bias, specs=_pairs(specs),
+                              approx_gelu=approx_gelu, out_dtype=h0.dtype, eps=eps).contiguous(),
+    fake=_frontend_op_fake)

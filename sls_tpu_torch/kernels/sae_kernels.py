@@ -27,7 +27,12 @@ is ported:
 Each wrapper takes its plain PyTorch version (``*_plain``, beside it)
 for a tensor on the CPU, and launches its kernel for a CUDA tensor or
 raises; there is no fallback.  ``<wrapper>.launches`` counts kernel
-launches, so a run can show that its main path went through them.
+launches, so a run can show that its main path went through them.  All
+but ``topk_sparsify`` (no path calls it) go through a ``torch.library``
+custom op (``sls_tpu_torch::sae_encode_topk``, ``sae_encode``,
+``window_vote``, ``sae_decode``; ``kernels/ops.py``) whose ``cuda``
+implementation is the launch and whose ``cpu`` one the plain version, so
+that ``torch.export`` keeps the kernels in a serving program.
 
 Training goes through four ``torch.autograd.Function``s, the
 counterparts of the reference's custom VJPs: ``sae_encode_topk``,
@@ -48,6 +53,7 @@ import ctypes
 import torch
 
 from sls_tpu_torch.kernels import build
+from sls_tpu_torch.kernels.ops import define
 from sls_tpu_torch.sae.sparsify import _overlap_geometry
 
 _P = ctypes.c_void_p
@@ -363,18 +369,14 @@ def window_vote_fused_plain(acts: torch.Tensor, k: int, window: int) -> torch.Te
     return torch.where(keep, a, 0).float()
 
 
-# -- wrappers ---------------------------------------------------------------
+# -- kernel launches ----------------------------------------------------------
+#
+# Each ``_<op>_cuda`` checks its operands, launches its kernel on the
+# current stream and adds one to its wrapper's ``launches``; it is the
+# ``cuda`` implementation of the custom op below it.
 
 
-def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
-    """Sparse codes = topk_mask(relu((x - b_dec) @ w_enc + b_enc), k);
-    x [N, D] -> [N, M] fp32.  CUDA: D % 32 == 0, M % 128 == 0, fp32
-    contiguous operands; the cast pass takes (N + M) D bf16 of scratch a
-    call."""
-    if x.device.type == "cpu":
-        return sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _encode_topk_cuda(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
     n, d = x.shape
     m = w_enc.shape[1]
     for t, name, shape in ((x, "x", (n, d)), (w_enc, "w_enc", (d, m)),
@@ -401,17 +403,7 @@ def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
     return out
 
 
-sae_encode_topk_fused.launches = 0
-
-
-def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
-    """relu((x - b_dec) @ w_enc + b_enc) in fp32, x [N, D] -> [N, M].
-    CUDA: D % 32 == 0, M % 128 == 0, fp32 contiguous operands; the
-    kernel's split operands take 2 (N + M) D fp32 of scratch a call."""
-    if x.device.type == "cpu":
-        return sae_encode_fused_plain(x, w_enc, b_enc, b_dec)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _encode_cuda(x, w_enc, b_enc, b_dec) -> torch.Tensor:
     n, d = x.shape
     m = w_enc.shape[1]
     for t, name, shape in ((x, "x", (n, d)), (w_enc, "w_enc", (d, m)),
@@ -433,13 +425,112 @@ def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
     return out
 
 
+def _window_vote_cuda(acts, k: int, window: int) -> torch.Tensor:
+    B, T, M = acts.shape
+    stride, num_windows, n_chunks = _window_geometry(T, window)
+    _check_operand(acts, "acts", (B, T, M), acts.device)
+    if not 1 <= k <= M:
+        raise ValueError(f"k must be in [1, {M}], got {k}")
+    if M * 4 > 227 * 1024:
+        raise ValueError(f"M={M} rows exceed a block's shared memory")
+    out = torch.empty_like(acts)
+    if B == 0:
+        return out
+    fn = _lib("window_vote", "window_vote_launch", [_P] * 2 + [_I] * 7 + [_P])
+    with torch.cuda.device(acts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(acts.data_ptr(), out.data_ptr(), B, T, M, k, stride, num_windows, n_chunks,
+                 stream)
+    build.check(err, "window_vote")
+    window_vote_fused.launches += 1
+    return out
+
+
+def _decode_cuda(codes, w_dec, b_dec) -> torch.Tensor:
+    n, m = codes.shape
+    d = w_dec.shape[1]
+    for t, name, shape in ((codes, "codes", (n, m)), (w_dec, "w_dec", (m, d)),
+                           (b_dec, "b_dec", (d,))):
+        _check_operand(t, name, shape, codes.device)
+    if m % 4 or d % 4:
+        raise ValueError(f"need M % 4 == 0 and D % 4 == 0, got M={m}, D={d}")
+    out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
+    if n == 0:
+        return out
+    fn = _lib("sae_decode", "sae_decode_launch", [_P] * 4 + [_I] * 3 + [_P])
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(codes.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), out.data_ptr(),
+                 n, m, d, stream)
+    build.check(err, "sae_decode")
+    sae_decode_fused.launches += 1
+    return out
+
+
+# -- custom ops ---------------------------------------------------------------
+#
+# Rows 1, 2, 3 and 5 as ``sls_tpu_torch::*`` custom ops (``kernels/ops.py``):
+# the launches above on a CUDA tensor, the plain versions on a CPU one.
+
+_SAE_ARGS = "Tensor x, Tensor w_enc, Tensor b_enc, Tensor b_dec"
+
+_encode_topk_op = define(
+    "sae_encode_topk", f"({_SAE_ARGS}, int k) -> Tensor", cuda=_encode_topk_cuda,
+    cpu=lambda x, w_enc, b_enc, b_dec, k: sae_encode_topk_fused_plain(x, w_enc, b_enc, b_dec, k),
+    fake=lambda x, w_enc, b_enc, b_dec, k: x.new_empty((x.shape[0], w_enc.shape[1]),
+                                                       dtype=torch.float32))
+_encode_op = define(
+    "sae_encode", f"({_SAE_ARGS}) -> Tensor", cuda=_encode_cuda,
+    cpu=lambda x, w_enc, b_enc, b_dec: sae_encode_fused_plain(x, w_enc, b_enc, b_dec),
+    fake=lambda x, w_enc, b_enc, b_dec: x.new_empty((x.shape[0], w_enc.shape[1]),
+                                                    dtype=torch.float32))
+_window_vote_op = define(
+    "window_vote", "(Tensor acts, int k, int window) -> Tensor", cuda=_window_vote_cuda,
+    cpu=lambda acts, k, window: window_vote_fused_plain(acts, k, window),
+    fake=lambda acts, k, window: torch.empty_like(acts))
+_decode_op = define(
+    "sae_decode", "(Tensor codes, Tensor w_dec, Tensor b_dec) -> Tensor", cuda=_decode_cuda,
+    cpu=lambda codes, w_dec, b_dec: sae_decode_fused_plain(codes, w_dec, b_dec),
+    fake=lambda codes, w_dec, b_dec: codes.new_empty((codes.shape[0], w_dec.shape[1]),
+                                                     dtype=torch.float32))
+
+
+def _kernel_device(t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+# -- wrappers ---------------------------------------------------------------
+
+
+def sae_encode_topk_fused(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
+    """Sparse codes = topk_mask(relu((x - b_dec) @ w_enc + b_enc), k);
+    x [N, D] -> [N, M] fp32, through ``sls_tpu_torch::sae_encode_topk``.
+    CUDA: D % 32 == 0, M % 128 == 0, fp32 contiguous operands; the cast
+    pass takes (N + M) D bf16 of scratch a call."""
+    _kernel_device(x)
+    return _encode_topk_op(x, w_enc, b_enc, b_dec, int(k))
+
+
+sae_encode_topk_fused.launches = 0
+
+
+def sae_encode_fused(x, w_enc, b_enc, b_dec) -> torch.Tensor:
+    """relu((x - b_dec) @ w_enc + b_enc) in fp32, x [N, D] -> [N, M],
+    through ``sls_tpu_torch::sae_encode``.  CUDA: D % 32 == 0,
+    M % 128 == 0, fp32 contiguous operands; the kernel's split operands
+    take 2 (N + M) D fp32 of scratch a call."""
+    _kernel_device(x)
+    return _encode_op(x, w_enc, b_enc, b_dec)
+
+
 sae_encode_fused.launches = 0
 
 
 def topk_sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
     """Keep each row's k largest entries, zero the rest: the exact
     threshold form on non-negative fp32 rows, x [..., M].  CUDA: fp32
-    contiguous."""
+    contiguous.  Not a custom op: no serving path calls it."""
     if x.device.type == "cpu":
         return topk_threshold_mask_plain(x.reshape(-1, x.shape[-1]), k).reshape(x.shape)
     if x.device.type != "cuda":
@@ -469,60 +560,21 @@ topk_sparsify.launches = 0
 def window_vote_fused(acts: torch.Tensor, k: int, window: int) -> torch.Tensor:
     """Overlap-window vote merge of post-ReLU acts [B, T, M] fp32 in the
     TPU kernel's bf16 arithmetic -> [B, T, M] fp32; even ``window``
-    only.  CUDA: fp32 contiguous acts."""
-    if acts.device.type == "cpu":
-        return window_vote_fused_plain(acts, k, window)
-    if acts.device.type != "cuda":
-        raise ValueError(f"no kernel for device {acts.device}")
-    B, T, M = acts.shape
-    stride, num_windows, n_chunks = _window_geometry(T, window)
-    _check_operand(acts, "acts", (B, T, M), acts.device)
-    if not 1 <= k <= M:
-        raise ValueError(f"k must be in [1, {M}], got {k}")
-    if M * 4 > 227 * 1024:
-        raise ValueError(f"M={M} rows exceed a block's shared memory")
-    out = torch.empty_like(acts)
-    if B == 0:
-        return out
-    fn = _lib("window_vote", "window_vote_launch", [_P] * 2 + [_I] * 7 + [_P])
-    with torch.cuda.device(acts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(acts.data_ptr(), out.data_ptr(), B, T, M, k, stride, num_windows, n_chunks,
-                 stream)
-    build.check(err, "window_vote")
-    window_vote_fused.launches += 1
-    return out
+    only; through ``sls_tpu_torch::window_vote``.  CUDA: fp32 contiguous
+    acts."""
+    _kernel_device(acts)
+    return _window_vote_op(acts, int(k), int(window))
 
 
 window_vote_fused.launches = 0
 
 
 def sae_decode_fused(codes, w_dec, b_dec) -> torch.Tensor:
-    """codes @ w_dec + b_dec for codes [N, M] -> [N, D], fp32.  CUDA:
-    M % 4 == 0 and D % 4 == 0, fp32 contiguous operands; zero codes are
-    skipped."""
-    if codes.device.type == "cpu":
-        return sae_decode_fused_plain(codes, w_dec, b_dec)
-    if codes.device.type != "cuda":
-        raise ValueError(f"no kernel for device {codes.device}")
-    n, m = codes.shape
-    d = w_dec.shape[1]
-    for t, name, shape in ((codes, "codes", (n, m)), (w_dec, "w_dec", (m, d)),
-                           (b_dec, "b_dec", (d,))):
-        _check_operand(t, name, shape, codes.device)
-    if m % 4 or d % 4:
-        raise ValueError(f"need M % 4 == 0 and D % 4 == 0, got M={m}, D={d}")
-    out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
-    if n == 0:
-        return out
-    fn = _lib("sae_decode", "sae_decode_launch", [_P] * 4 + [_I] * 3 + [_P])
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(codes.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), out.data_ptr(),
-                 n, m, d, stream)
-    build.check(err, "sae_decode")
-    sae_decode_fused.launches += 1
-    return out
+    """codes @ w_dec + b_dec for codes [N, M] -> [N, D], fp32, through
+    ``sls_tpu_torch::sae_decode``.  CUDA: M % 4 == 0 and D % 4 == 0, fp32
+    contiguous operands; zero codes are skipped."""
+    _kernel_device(codes)
+    return _decode_op(codes, w_dec, b_dec)
 
 
 sae_decode_fused.launches = 0

@@ -29,7 +29,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from sls_tpu_torch.data.audio import DEFAULT_CUT, pad_or_tile
+from sls_tpu_torch.data.audio import DEFAULT_CUT, SAMPLE_RATE, pad_or_tile, resample
 from sls_tpu_torch.data.pipeline import to_wire
 from sls_tpu_torch.evaluation.overlap import aggregator, extract_windows
 from sls_tpu_torch.scores.writer import log_probs_to_scores
@@ -156,17 +156,25 @@ class BatchingEngine:
 
     # -- request path ------------------------------------------------------
 
-    def submit(self, wav: np.ndarray) -> Future:
-        """Queue one 16 kHz utterance; resolves to float P(bonafide).  It
-        is repeat-tiled / cropped to the fixed cut on the caller's thread.
-        (Resampling other rates comes with the file loader, ROADMAP.)"""
+    def submit(self, wav: np.ndarray, sample_rate: int = 16000) -> Future:
+        """Queue one utterance; resolves to float P(bonafide).  It is
+        resampled to 16 kHz when ``sample_rate`` differs
+        (``data/audio.resample``) and repeat-tiled / cropped to the fixed
+        cut, on the caller's thread."""
+        return self._submit_row(pad_or_tile(self._prepare(wav, sample_rate), self.cut))
+
+    def _prepare(self, wav: np.ndarray, sample_rate: int) -> np.ndarray:
         wav = np.asarray(wav, np.float32).reshape(-1)
         if wav.size == 0:
             raise ValueError("empty audio")
-        return self._submit_row(pad_or_tile(wav, self.cut))
+        if sample_rate != SAMPLE_RATE:
+            wav = resample(wav, sample_rate, SAMPLE_RATE)
+        return wav
 
-    def submit_windows(self, wav: np.ndarray, stride: Optional[int] = None) -> List[Future]:
-        """One future per overlapping window of a long 16 kHz utterance.
+    def submit_windows(self, wav: np.ndarray, sample_rate: int = 16000,
+                       stride: Optional[int] = None) -> List[Future]:
+        """One future per overlapping window of a long utterance (resampled
+        to 16 kHz as in ``submit``).
 
         The windows are those of the offline full-utterance path
         (``evaluation/overlap.extract_windows``: stride cut // 2 by
@@ -174,18 +182,22 @@ class BatchingEngine:
         window), so a served long-clip score aggregates the window scores
         that ``score_full_utterance`` aggregates.  They interleave with
         other requests in the batcher."""
-        wav = np.asarray(wav, np.float32).reshape(-1)
-        if wav.size == 0:
-            raise ValueError("empty audio")
+        wav = self._prepare(wav, sample_rate)
         return [self._submit_row(row) for row in extract_windows(wav, self.cut, stride)]
 
-    def score_long(self, wav: np.ndarray, stride: Optional[int] = None,
-                   aggregate: str = "mean", timeout: Optional[float] = 120.0):
+    def score(self, wav: np.ndarray, sample_rate: int = 16000,
+              timeout: Optional[float] = 30.0) -> float:
+        """Blocking ``submit``."""
+        return self.submit(wav, sample_rate).result(timeout)
+
+    def score_long(self, wav: np.ndarray, sample_rate: int = 16000,
+                   stride: Optional[int] = None, aggregate: str = "mean",
+                   timeout: Optional[float] = 120.0):
         """Blocking long-clip score: (aggregated P(bonafide), n_windows);
         ``aggregate`` is 'mean', 'min' or 'max', as in
         ``score_full_utterance``."""
         agg = aggregator(aggregate)
-        vals = [f.result(timeout) for f in self.submit_windows(wav, stride)]
+        vals = [f.result(timeout) for f in self.submit_windows(wav, sample_rate, stride)]
         return float(agg(vals)), len(vals)
 
     def _submit_row(self, row: np.ndarray) -> Future:

@@ -12,7 +12,8 @@ config and a state dict instead.  Either family is served: a state with
 ``sls_head.`` entries is an ``SLSDetector``, any other a ``Detector``.
 
 Not ported yet: data-parallel serving over several cards (the
-reference's ``mesh`` argument; ROADMAP M8).
+reference's ``mesh`` argument, and with it ``cli/serve.py --dp``;
+ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.models.sls import SLSDetector
 from sls_tpu_torch.train.steps import dequantize_wire
 
-_WIRE_NUMPY = {"float32": np.float32, "int16": np.int16, "mulaw": np.uint8}
+WIRE_NUMPY = {"float32": np.float32, "int16": np.int16, "mulaw": np.uint8}
 
 
 def load_serving_parts(run_dir, checkpoint=None, int8: Optional[bool] = None
@@ -65,13 +66,21 @@ def is_sls_state(state_dict: Mapping[str, torch.Tensor]) -> bool:
     return any(k.startswith("sls_head.") for k in state_dict)
 
 
-def _forward(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
-             dev: torch.device) -> Callable:
+def serving_model(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
+                  device: DeviceLike = "cuda") -> torch.nn.Module:
+    """The family's model (module docstring) holding ``state_dict``."""
+    dev = resolve_device(device)
     if is_sls_state(state_dict):
         model = SLSDetector(cfg.model, device=dev, cut_length=cfg.train.cut_length)
     else:
         model = Detector(cfg.model, device=dev)
     model.load_state_dict(dict(state_dict), strict=True)
+    return model
+
+
+def _forward(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
+             dev: torch.device) -> Callable:
+    model = serving_model(cfg, state_dict, dev)
 
     def score_fn(wav) -> torch.Tensor:
         with torch.inference_mode():
@@ -109,11 +118,11 @@ def build_scorer_from_params(
     ``SLSDetector.score``.  ``warmup`` runs one throwaway batch per shape
     (``bucket_sizes`` and ``batch_size``), so the first request does not
     pay for one-time setup (kernel build, library handles)."""
-    if wire_dtype not in _WIRE_NUMPY:
+    if wire_dtype not in WIRE_NUMPY:
         raise ValueError(f"unknown wire_dtype: {wire_dtype!r}")
     score_fn = _forward(cfg, state_dict, resolve_device(device))
     cut = cfg.train.cut_length
     if warmup:
         for s in tuple(sorted(set(bucket_sizes or ()))) + (batch_size,):
-            score_fn(np.zeros((s, cut), _WIRE_NUMPY[wire_dtype])).cpu()
+            score_fn(np.zeros((s, cut), WIRE_NUMPY[wire_dtype])).cpu()
     return cfg, score_fn, cut

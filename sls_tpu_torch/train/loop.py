@@ -59,6 +59,7 @@ from sls_tpu_torch.metrics.eer import roc_eer
 from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.parallel import distributed as dist
 from sls_tpu_torch.scores.writer import ScoreWriter, log_probs_to_scores
+from sls_tpu_torch.train import profiling
 from sls_tpu_torch.train.loss import weighted_nll
 from sls_tpu_torch.train.steps import (
     create_train_state,
@@ -176,6 +177,7 @@ class BaseTrainer:
                  profile_steps: int = 0, device: DeviceLike = "cuda"):
         # profile_steps > 0: a torch.profiler trace of that many steps
         # from the second step of the first trained epoch, in run_dir/profile
+        # (train/profiling.py: op_histogram reads it)
         if cfg.train.model_parallel > 1:
             raise ValueError("model_parallel > 1: tensor-parallel training is not ported yet "
                              "(ROADMAP M5)")
@@ -347,22 +349,14 @@ class BaseTrainer:
                             acc=100.0 * float(sums[4]) / n,
                             eer=_gathered_eer(scores_all, labels_all))
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
+    def _start_profile(self) -> profiling.Trace:
+        return profiling.Trace(self.run_dir / "profile").start()
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof) -> None:
-        prof.stop()
-        out = self.run_dir / "profile"
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace.json"))
+    def _stop_profile(self, prof: profiling.Trace) -> None:
+        path = prof.stop()
         self._profiled = True
+        if self.io_primary:
+            print(f"{self.log_prefix}profile: {path}", flush=True)
 
     def validate(self, loader) -> EpochMetrics:
         """Loss (weighted NLL at ``loss_weights``), SAE loss, accuracy and

@@ -37,6 +37,14 @@ FAMILY_MODULES = ("sls_tpu_torch.sae.cpc", "sls_tpu_torch.sae.legacy",
                   "sls_tpu_torch.sae.geometry", "sls_tpu_torch.heads.sls",
                   "sls_tpu_torch.models.sls", "sls_tpu_torch.analysis.sparsity")
 
+# the entry points' modules: the command lines, the HTTP server, the
+# deployment artifact, profiling, and the kernels' custom ops
+ENTRY_MODULES = ("sls_tpu_torch.cli.main", "sls_tpu_torch.cli.serve",
+                 "sls_tpu_torch.cli.export", "sls_tpu_torch.cli.profile_diff",
+                 "sls_tpu_torch.cli.monitor", "sls_tpu_torch.cli.package_results",
+                 "sls_tpu_torch.serve.server", "sls_tpu_torch.serve.export",
+                 "sls_tpu_torch.train.profiling", "sls_tpu_torch.kernels.ops")
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sls_tpu", "pandas", "sklearn", "msgpack")
 _BLOCKED_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu|pandas|sklearn|msgpack)\b(?!_torch)", re.M)
@@ -65,6 +73,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(PARALLEL_MODULES) <= names
     assert set(OFFLINE_MODULES) <= names
     assert set(FAMILY_MODULES) <= names
+    assert set(ENTRY_MODULES) <= names
 
 
 def test_long_clip_modules_are_checked():
@@ -74,6 +83,7 @@ def test_long_clip_modules_are_checked():
     assert set(PARALLEL_MODULES) <= checked
     assert set(OFFLINE_MODULES) <= checked
     assert set(FAMILY_MODULES) <= checked
+    assert set(ENTRY_MODULES) <= checked
 
 
 @pytest.mark.parametrize("line", ["import pandas as pd", "from sklearn.metrics import roc_curve",
@@ -108,3 +118,20 @@ def test_entry_points_default_to_the_card():
         make_eval_step(model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_scorer_from_params(ExperimentConfig(model=cfg), model.state_dict())
+
+
+def test_cli_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from sls_tpu_torch.cli import export, main, serve
+    from sls_tpu_torch.serve.export import export_serving
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    monkeypatch.delenv("SLS_TPU_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main.main(["--tiny", "--model_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--run_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.main([str(tmp_path), "--out", str(tmp_path / "art")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_serving(tmp_path, tmp_path / "art")
