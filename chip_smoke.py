@@ -205,7 +205,24 @@ Phases:
      artifact, as child processes: ``/healthz``, ``/score`` (PCM16),
      ``/score_batch``, ``/score_long``, ``/stats``, each score within
      SERVE_TOL of the score file or ``score_full_utterance``, and
-     requests/s with p50 / p99 latency at 1 and 36 clients over 10 s.
+     requests/s with p50 / p99 latency at 1 and 36 clients over 10 s;
+ 19. training across ranks and serving over several devices, on the
+     flagship's seeded weights at full width and depth: two ranks spawned
+     once, sharing the card over gloo, run (a) the data-parallel flagship
+     step, 14 rows a rank, against the one-process step on the 28 rows in
+     TRAIN_ENVELOPE's form (loss within E2E_TOL; rows 1 and 2 once a step
+     on each rank; a NaN in rank 1's rows leaves both ranks' state bit for
+     bit; step ms and the gradient all-reduce's ms, gloo staging it through
+     host memory); (b) the data-parallel CPC step, 7 rows a rank, in phase
+     17's envelope and CPC_GRAD_FLOOR (rows 3 and 2); (c) the data-parallel
+     SLS step, its running statistics equal on both ranks and 0.9 old +
+     0.1 the global batch's; (d) a Trainer epoch across the ranks (one CSV
+     row and the checkpoints, the primary's; the same figures on both
+     ranks); (e) a model_parallel 2 step against the one-process step on
+     the plain SAE route, no SAE kernel launched, peak GiB a rank; then in
+     this process (f) build_scorer_from_params over two replicas on the
+     card at batch 36, within SERVE_TOL of one replica on the halves, its
+     utts/s beside phase 3's (time-sharing one card: no claim).
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -219,8 +236,9 @@ timed alone (torch.profiler, CUDA events), as ``{"profile": ...}``
 lines.  The train figures go into the ``{"run": ...}`` line under
 ``"train"``, phase 14's under ``"trainer"``, phase 15's under
 ``"offline"``, phase 16's under ``"sls"``, phase 17's under ``"cpc"``,
-phase 18's under ``"cli"``.  ``--cli-only`` runs phases 1 and 18 alone
-(a partial run, for work on the entry points: no result lines).
+phase 18's under ``"cli"``, phase 19's under ``"parallel"``.
+``--cli-only`` runs phases 1 and 18 alone (a partial run, for work on the
+entry points: no result lines); ``--parallel-only`` phases 1 and 19.
 """
 
 from __future__ import annotations
@@ -2333,7 +2351,9 @@ CLI_LONG_SECONDS = (3, 12, 40)  # In-the-Wild clips: buckets T 256, 1280 and 256
 CLI_TRAIN_BATCH = {"cuda": 14, "cpu": 4}  # TrainConfig.batch_size; the rehearsal profiles 3 steps
 CLI_PROFILE_STEPS = 2
 CLI_FREE = 16                   # the disk must hold 16 times the weights' fp32 bytes
-LOAD_SECONDS = 10.0             # each server's load at 1 and at 36 clients
+# each server's load at 1 and at 36 clients (5 s a load keeps the script,
+# phase 19 included, under half its time limit)
+LOAD_SECONDS = 5.0
 LOAD_CLIENTS = (1, 36)
 EXPORT_TOL = 1e-3               # cli/export.py --verify's limit: the exported program
 SERVER_START_S = 600.0          # a server that prints no address within this fails
@@ -2903,6 +2923,443 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
     return res
 
 
+# Phase 19: training across ranks and serving over several devices.  Two
+# ranks share the one card over gloo (choose_backend's rule for ranks that
+# share a card; NCCL, a card a rank, cannot run on a one-card machine).
+# The ranks step their halves of a global batch; the one-process step on
+# the whole batch is the reference, held in TRAIN_ENVELOPE's form as
+# phase 12 (c) holds routes (the CPC step with phase 17's envelope and
+# CPC_GRAD_FLOOR).  A rank's encoder runs its convs and bf16 GEMMs on half
+# the rows, which the libraries may compute with other algorithms, and
+# the tensor-parallel FFN rounds its sums in another order; either
+# difference is the encoder's own bf16 rounding, so each tensor's envelope
+# is the larger of the route's (phase 12's, 17's) and the encoder's: the
+# one-process step's gradient with the encoder in bf16 against in fp32.
+# The losses and the SLS batch statistics are held alike: within 2x the
+# one-process step's own bf16-against-fp32-encoder difference (or
+# E2E_TOL, whichever is larger).  Dropout is off where steps are
+# compared: each rank draws its own masks.
+PAR_RANKS = 2
+PAR_BATCH = {"cuda": 14, "cpu": 2}  # rows a rank: (a); (b) and (c) take half
+PAR_TRAINER = {"cuda": (14, 28, 28), "cpu": (2, 4, 4)}  # batch a rank, train, val rows
+PAR_SERVE_BATCHES = 5  # (f): timed batches
+
+
+def flat_to_named(torch, flat, model) -> dict:
+    """A flat buffer in ``named_parameters`` order -> {name: tensor}."""
+    out, start = {}, 0
+    for n, p_ in model.named_parameters():
+        out[n] = torch.from_numpy(np.array(flat[start:start + p_.numel()])).view(p_.shape)
+        start += p_.numel()
+    return out
+
+
+def envelope_check(got: dict, near: dict, far, envelope: dict, floor: float = 0.0):
+    """TRAIN_ENVELOPE's form: per tensor, ``got`` within 2x ``envelope`` of
+    ``near`` (the step it stands in for) and within 1.5x of ``far`` (the
+    more exact route; None when there is none), or within ``floor`` of
+    each; returns (every tensor holds, the worst ratios, the tensors held
+    by the floor)."""
+    ratios, floored, ok = {}, [], True
+    for n, e in envelope.items():
+        d_near = rel_l2(got[n], near[n])
+        d_far = 0.0 if far is None else rel_l2(got[n], far[n])
+        r = (d_near / e if e else (0.0 if d_near == 0 else math.inf),
+             d_far / e if e else (0.0 if d_far == 0 else math.inf))
+        ratios[n] = r
+        if r[0] <= TRAIN_ENVELOPE[1] and r[1] <= TRAIN_ENVELOPE[0]:
+            continue
+        if d_near <= max(TRAIN_ENVELOPE[1] * e, floor) and d_far <= max(TRAIN_ENVELOPE[0] * e,
+                                                                         floor):
+            floored.append(n)
+            continue
+        ok = False
+    worst = max(ratios, key=lambda n: max(ratios[n]))
+    return ok, {"worst": [worst, *ratios[worst], envelope[worst]],
+                "median_envelope_rel_l2": float(np.median(list(envelope.values())))}, floored
+
+
+def within_loss_envelope(got: float, want: float, envelope: float) -> bool:
+    """A DP / TP step's loss against the one-process step's (above)."""
+    return abs(got - want) <= max(E2E_TOL, TRAIN_ENVELOPE[1] * envelope)
+
+
+def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, counts,
+                   zero_counts, want_only, score_utts_per_s):
+    """Phase 19 (module docstring): (a)-(e) on two ranks spawned once, (f)
+    in this process.  Returns (the run line's ``parallel`` figures, the
+    kernels' launches by path)."""
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.data.pipeline import to_wire
+    from sls_tpu_torch.models.detector import Detector
+    from sls_tpu_torch.models.sls import SLSDetector
+    from sls_tpu_torch.parallel import distributed as dist
+    from sls_tpu_torch.parallel import workers
+    from sls_tpu_torch.parallel.launch import launch
+    from sls_tpu_torch.scores.writer import log_probs_to_scores
+    from sls_tpu_torch.serve.scorer import build_scorer_from_params
+    from sls_tpu_torch.train.loss import weighted_nll
+    from sls_tpu_torch.train.steps import dequantize_wire, dropout_generator
+
+    on_card = device.type == "cuda"
+    b = PAR_BATCH[device.type]
+    cut = wavs.shape[1]
+    backend = dist.choose_backend(device.type, PAR_RANKS)
+    res = {"backend": backend, "ranks": PAR_RANKS,
+           "ranks_share_a_card": bool(on_card and backend == "gloo")}
+    launches_by_path = {}
+    cfg = dataclasses.replace(model.config, classifier_dropout=0.0)
+    tcfg = exp.train
+    dp_exp = C.ExperimentConfig(model=cfg, train=tcfg)
+
+    def global_rows(rows, seed_):
+        w = np.resize(wavs, (rows, cut)).astype(np.float32)
+        return (to_wire(w, "int16"), np.random.default_rng(seed_).integers(0, 2, rows),
+                np.ones(rows, np.float32))
+
+    def on_dev(gb):
+        return tuple(torch.from_numpy(np.asarray(x)).to(device) for x in gb)
+
+    def sharing(cfg_):
+        m = Detector(cfg_, device="meta")
+        m.load_state_dict(model.state_dict(), strict=True, assign=True)
+        return m
+
+    def host(g):
+        return {n: t.detach().cpu() for n, t in g.items()}
+
+    def encode_f64(x, w_enc, b_enc, b_dec):
+        return torch.relu((x.double() - b_dec.double()) @ w_enc.double()
+                          + b_enc.double()).float()
+
+    def decode_f64(codes, w_dec, b_dec):
+        return (codes.double() @ w_dec.double() + b_dec.double()).float()
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        # -- the jobs' inputs (host arrays, configs) --------------------------------
+        ga, ge = global_rows(PAR_RANKS * b, seed + 19), global_rows(b, seed + 20)
+        gb_b, gb_c = global_rows(b, seed + 21), global_rows(b, seed + 22)
+        fp32_enc = dataclasses.replace(cfg.encoder, dtype=torch.float32, approx_gelu=True)
+        plain_sae = dataclasses.replace(cfg.sae, use_pallas=False)
+        cpc_cfg = dataclasses.replace(
+            cfg, use_cpc=True, cpc=C.CPCConfig(prediction_steps=CPC_STEPS),
+            sae=dataclasses.replace(cfg.sae, variant="window_hard", window_size=WINDOW))
+        cpc_exp = C.ExperimentConfig(model=cpc_cfg, train=dataclasses.replace(
+            tcfg, cpc_weight=0.5))
+        sls_exp = C.ExperimentConfig(model=C.ModelConfig(encoder=cfg.encoder, use_sae=False),
+                                     train=tcfg)
+        bt, n_train, n_val = PAR_TRAINER[device.type]
+        d_exp = C.ExperimentConfig(model=model.config, train=dataclasses.replace(
+            tcfg, batch_size=bt))
+        d_train = (to_wire(synthetic_wavs(n_train, cut, seed + 23), "int16"),
+                   np.random.default_rng(seed + 23).permutation(np.arange(n_train) % 2))
+        d_val = (to_wire(synthetic_wavs(n_val, cut, seed + 24), "int16"),
+                 np.random.default_rng(seed + 24).permutation(np.arange(n_val) % 2))
+        tp_exp = C.ExperimentConfig(model=cfg, train=dataclasses.replace(
+            tcfg, model_parallel=PAR_RANKS))
+        common = dict(device_type=device.type, return_weights=False, return_grads=False)
+        go, abort = work / "go", work / "abort"
+        jobs = [
+            # the ranks start (spawn, imports, process group) while this
+            # process computes the references, then wait for its word
+            ("wait_for_path_rank", (str(go), str(abort), RANKS_TIMEOUT_S), {}),
+            ("train_steps_rank", (dp_exp, "detector", {"seed": seed}, [ga, ga, ga]),
+             dict(common, nan_step=1, grad_path=str(work / "grad_a.npy"), time_allreduce=True)),
+            ("train_steps_rank", (cpc_exp, "detector", {"path": str(work / "cpc.pt")}, [gb_b]),
+             dict(common, grad_path=str(work / "grad_b.npy"))),
+            ("train_steps_rank", (sls_exp, "sls", {"seed": seed + 16}, [gb_c]), dict(common)),
+            ("trainer_rank", (d_exp, "detector", str(work / "trainer"), d_train, d_val, bt, 1),
+             dict(device_type=device.type)),
+            ("train_steps_rank", (tp_exp, "detector", {"seed": seed}, [ge]),
+             dict(common, grad_path=str(work / "grad_e.npy"))),
+        ]
+        box = {}
+
+        def run_ranks():
+            try:
+                box["ranks"] = launch(workers.jobs_rank, PAR_RANKS, (jobs,),
+                                      device_type=device.type, timeout_s=RANKS_TIMEOUT_S)
+            except BaseException as exc:  # raised again in the phase's thread
+                box["error"] = exc
+
+        wall0 = time.time()
+        ranks_thread = threading.Thread(target=run_ranks, daemon=True)
+        ranks_thread.start()
+        try:
+            # -- references in this process, then the card is the ranks' ---------
+            t_ref = time.perf_counter()
+            ref = {}
+            # (a) the kernel route, and (e) the plain route tensor parallelism takes
+            for key, gb, route in (("a", ga, cfg), ("e", ge, dataclasses.replace(
+                    cfg, sae=plain_sae))):
+                m_ = sharing(route)
+                loss_r, _, g_r = grads_of(torch, m_, tcfg, on_dev(gb), seed, device)
+                g_r = host(g_r)
+                loss_f, _, g_f = grads_of(torch, sharing(dataclasses.replace(
+                    route, encoder=fp32_enc)), tcfg, on_dev(gb), seed, device)
+                g_f = host(g_f)
+                with plain_sae_kernels(tk):
+                    _, _, g_p = grads_of(torch, sharing(cfg), tcfg, on_dev(gb), seed, device)
+                g_p, g_t = host(g_p), g_r  # (e)'s route is the plain SAE route itself
+                if route is cfg:
+                    _, _, g_t = grads_of(torch, sharing(dataclasses.replace(
+                        cfg, sae=plain_sae)), tcfg, on_dev(gb), seed, device)
+                    g_t = host(g_t)
+                # phase 12 (c)'s SAE envelope, and the encoder's rounding
+                env = {n: max(rel_l2(g_p[n], g_t[n]), rel_l2(g_r[n], g_f[n])) for n in g_r}
+                del g_p
+                ref[key] = {"loss": loss_r, "g": g_r, "g_t": g_t,
+                            "loss_env": abs(loss_r - loss_f), "env": env}
+                del m_, g_f
+                if on_card:
+                    torch.cuda.empty_cache()
+
+            # (b) the CPC detector: the flagship's weights, a seeded CPC head
+            cpc_m = Detector(cpc_cfg, device=device,
+                             generator=torch.Generator(device=device).manual_seed(seed + 17))
+            cpc_m.load_state_dict(model.state_dict(), strict=False)
+            torch.save(cpc_m.state_dict(), work / "cpc.pt")
+            loss_bk, _, g_bk = grads_of(torch, cpc_m, cpc_exp.train, on_dev(gb_b), seed, device)
+            rows3_2 = ("sae_encode_fused", "sae_decode_fused")
+            with plain_sae_kernels(tk, rows3_2):
+                _, _, g_bp = grads_of(torch, cpc_m, cpc_exp.train, on_dev(gb_b), seed, device)
+            with plain_sae_kernels(tk, versions={"sae_encode_fused": encode_f64,
+                                                 "sae_decode_fused": decode_f64}):
+                _, _, g_bt = grads_of(torch, cpc_m, cpc_exp.train, on_dev(gb_b), seed, device)
+            cpc_f = Detector(dataclasses.replace(cpc_cfg, encoder=fp32_enc), device="meta")
+            cpc_f.load_state_dict(cpc_m.state_dict(), strict=True, assign=True)
+            loss_bf, _, g_bf = grads_of(torch, cpc_f, cpc_exp.train, on_dev(gb_b), seed, device)
+            g_bk, g_bp, g_bt, g_bf = (host(g) for g in (g_bk, g_bp, g_bt, g_bf))
+            # phase 17's envelope (its run-to-run term lies far inside the encoder's)
+            ref["b"] = {"loss": loss_bk, "g": g_bk, "g_t": g_bt,
+                        "loss_env": abs(loss_bk - loss_bf),
+                        "env": {n: max(rel_l2(g_bp[n], g_bt[n]), rel_l2(g_bk[n], g_bf[n]))
+                                for n in g_bp}}
+            del cpc_m, cpc_f, g_bp, g_bf
+
+            # (c) the SLS detector, seeded as phase 16 draws it
+            sls_m = SLSDetector(sls_exp.model, device=device, cut_length=cut,
+                                generator=torch.Generator(device=device).manual_seed(seed + 16))
+            sls_f = SLSDetector(dataclasses.replace(sls_exp.model, encoder=fp32_enc),
+                                device="meta", cut_length=cut)
+            sls_f.load_state_dict(sls_m.state_dict(), strict=True, assign=True)
+            sls_one = {}
+            with torch.no_grad():
+                w_, y_, v_ = on_dev(gb_c)
+                for key, m_ in (("bf16", sls_m), ("fp32_encoder", sls_f)):
+                    out = m_(dequantize_wire(w_), train=True,
+                             generator=dropout_generator(0, 0, device))
+                    sls_one[key] = [float(weighted_nll(out["log_probs"], y_, tcfg.loss_weights,
+                                                       v_)),
+                                    *(float(t) for t in out["bn_stats"])]
+                old_stats = [float(sls_m.sls_head.first_bn.running_mean),
+                             float(sls_m.sls_head.first_bn.running_var)]
+            del sls_m, sls_f, out
+            res["references_s"] = time.perf_counter() - t_ref
+
+            # (d) room for the Trainer's checkpoints
+            ckpt_bytes = 4 * (sum(t.numel() for t in model.state_dict().values())
+                              + 2 * sum(p.numel() for p in model.parameters()))
+            free = shutil.disk_usage(work).free
+            check(free >= CKPT_FILES_FREE * ckpt_bytes,
+                  f"{work} must hold {CKPT_FILES_FREE} checkpoints of ~{ckpt_bytes / 1e9:.2f} "
+                  f"GB and has {free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+            if on_card:
+                torch.cuda.empty_cache()
+        except BaseException:
+            abort.touch()
+            ranks_thread.join()
+            raise
+
+        # -- the two ranks: (a)-(e) in order -------------------------------------
+        log(f"phase 19: {PAR_RANKS} ranks over {backend}"
+            + (f", sharing {torch.cuda.device_count()} card(s)" if on_card else "")
+            + f": (a) DP flagship step {b} + {b} rows, (b) DP CPC {b // 2} + {b // 2}, (c) DP "
+            f"SLS {b // 2} + {b // 2}, (d) Trainer {n_train} / {n_val} utterances at {bt} a "
+            f"rank, (e) TP step model_parallel {PAR_RANKS} on {b} rows; references in "
+            f"{res['references_s']:.1f} s")
+        t0 = time.perf_counter()
+        go.touch()
+        ranks_thread.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        res["ranks_s"] = time.perf_counter() - t0  # from the word to go
+        waited, a, bb, c, d, e = ([r[i] for r in ranks] for i in range(6))
+        res["job_s_by_rank"] = {k: [r["job_s"] for r in job] for k, job in
+                                zip(("a", "b", "c", "d", "e"), (a, bb, c, d, e))}
+        # the ranks' start-up (spawn, imports, process group), under the
+        # references, and their wind-down after the last job
+        res["ranks_start_s"] = [r["job_wall"][0] - wall0 for r in waited]
+        res["ranks_end_s"] = [time.time() - r["job_wall"][1] for r in e]
+        log(f"phase 19: the ranks started in {max(res['ranks_start_s']):.1f} s under the "
+            f"references, then ran for {res['ranks_s']:.1f} s (wind-down "
+            f"{min(res['ranks_end_s']):.1f} s), jobs (s a rank): "
+            f"{json.dumps(res['job_s_by_rank'])}")
+
+        # (a) DP flagship step
+        g_a = flat_to_named(torch, np.load(work / "grad_a.npy", mmap_mode="r"), model)
+        ok, worst, floored = envelope_check(g_a, ref["a"]["g"], ref["a"]["g_t"],
+                                            ref["a"]["env"])
+        ra = {"loss": a[0]["steps"][0]["terms"][0], "loss_one_process": ref["a"]["loss"],
+              "loss_envelope": ref["a"]["loss_env"],
+              "step_ms_by_rank": [[s_["ms"] for s_ in r["steps"]] for r in a],
+              "allreduce_ms": [r.get("allreduce_ms") for r in a],
+              "peak_gib_by_rank": [r["peak_bytes"] / 2**30 for r in a],
+              "grad_vs_one_process": worst, "launches_by_rank": [r["launches"] for r in a],
+              "nan_step_bits_kept": [r["steps"][1]["bits_kept"] for r in a]}
+        res["a_dp_flagship"] = ra
+        log(f"phase 19 (a) DP flagship step: {json.dumps(ra)}")
+        check(within_loss_envelope(ra["loss"], ra["loss_one_process"], ref["a"]["loss_env"]),
+              "the DP step's loss agrees with the one-process step on the whole batch")
+        check(ok, "every gradient of the DP step is within TRAIN_ENVELOPE of the one-process "
+                  "step's")
+        check(all(r["steps"][i]["terms"] == a[0]["steps"][i]["terms"] for r in a
+                  for i in (0, 2)), "both ranks report the same global loss terms")
+        check(a[0]["steps"][0]["grad_sums"] == a[1]["steps"][0]["grad_sums"],
+              "both ranks hold the same summed gradient")
+        check(all(r["steps"][0]["finite"] and not r["steps"][1]["finite"]
+                  and r["steps"][2]["finite"] for r in a),
+              "the NaN in rank 1's rows rejects that step on both ranks, and only that one")
+        check(all(r["steps"][1]["bits_kept"] for r in a),
+              "the rejected step leaves both ranks' state bit for bit as it was")
+        check(a[0]["checksum"] == a[1]["checksum"] and a[0]["step"] == a[1]["step"] == 2,
+              "after the steps both ranks hold the same weights and moments")
+        if on_card:
+            for r in a:
+                want_only("DP flagship step, one rank", r["launches"],
+                          {"sae_encode_topk_fused": 3, "sae_decode_fused": 3})
+        launches_by_path["dp_train_flagship"] = {
+            n: sum(r["launches"][n] for r in a) for n in KERNELS}
+
+        # (b) DP CPC step
+        g_b = flat_to_named(torch, np.load(work / "grad_b.npy", mmap_mode="r"),
+                            Detector(cpc_cfg, device="meta"))
+        ok, worst, floored = envelope_check(g_b, ref["b"]["g"], ref["b"]["g_t"],
+                                            ref["b"]["env"], floor=CPC_GRAD_FLOOR)
+        rb_ = {"loss": bb[0]["steps"][0]["terms"][0], "loss_one_process": ref["b"]["loss"],
+               "loss_envelope": ref["b"]["loss_env"],
+               "cpc_loss": bb[0]["steps"][0]["terms"][3], "grad_vs_one_process": worst,
+               "held_by_floor": floored, "step_ms_by_rank": [r["steps"][0]["ms"] for r in bb],
+               "launches_by_rank": [r["launches"] for r in bb]}
+        res["b_dp_cpc"] = rb_
+        log(f"phase 19 (b) DP CPC step: {json.dumps(rb_)}")
+        check(within_loss_envelope(rb_["loss"], rb_["loss_one_process"], ref["b"]["loss_env"])
+              and rb_["cpc_loss"] > 0,
+              "the DP CPC step's loss agrees with the one-process step's; its CPC loss is live")
+        check(ok, "every gradient of the DP CPC step is within phase 17's envelope of the "
+                  "one-process step's (CPC_GRAD_FLOOR included)")
+        check(bb[0]["checksum"] == bb[1]["checksum"], "the DP CPC ranks hold the same weights")
+        if on_card:
+            for r in bb:
+                want_only("DP CPC step, one rank", r["launches"],
+                          {"sae_encode_fused": 1, "sae_decode_fused": 1})
+        launches_by_path["dp_train_cpc"] = {
+            n: sum(r["launches"][n] for r in bb) for n in KERNELS}
+
+        # (c) DP SLS step: [loss, batch mean, batch variance] against the
+        # one-process forward on the whole batch, in the encoder's envelope
+        stats = [[float(r["buffers"][f"sls_head.first_bn.running_{k}"][0]) for k in
+                  ("mean", "var")] for r in c]
+        dp = [c[0]["steps"][0]["terms"][0], *c[0]["steps"][0]["bn_stats"]]
+        one, one_f = sls_one["bf16"], sls_one["fp32_encoder"]
+        want_stats = [0.9 * old_stats[0] + 0.1 * dp[1], 0.9 * old_stats[1] + 0.1 * dp[2]]
+        rc = {"loss_mean_var": dp, "one_process": one, "one_process_fp32_encoder": one_f,
+              "running_stats_by_rank": stats, "want_0.9_old_0.1_batch": want_stats,
+              "step_ms_by_rank": [r["steps"][0]["ms"] for r in c]}
+        res["c_dp_sls"] = rc
+        log(f"phase 19 (c) DP SLS step: {json.dumps(rc)}")
+        check(all(within_loss_envelope(dp[i], one[i], abs(one[i] - one_f[i])) for i in range(3)),
+              "the DP SLS step's loss and batch statistics agree with the one-process forward "
+              "on the whole batch")
+        check(stats[0] == stats[1] and c[0]["checksum"] == c[1]["checksum"]
+              and c[0]["steps"][0]["bn_stats"] == c[1]["steps"][0]["bn_stats"],
+              "both SLS ranks hold the same batch and running statistics and weights")
+        # a mean's fp32 rounding is relative to the elements' RMS, not to itself
+        scale = [0.1 * math.sqrt(dp[2] + dp[1] ** 2), want_stats[1]]
+        check(all(abs(g_ - w_) <= SLS_STATS_REL * s_ for g_, w_, s_ in zip(
+            stats[0], want_stats, scale)),
+              "the running statistics are 0.9 old + 0.1 the global batch's")
+        check(all(n == 0 for r in c for n in r["launches"].values()),
+                  "the SLS step launches no hand-written kernel")
+
+        # (d) Trainer across the ranks
+        run = work / "trainer"
+        rows = csv_rows(run)
+        rd = {"fit_s_by_rank": [r["fit_s"] for r in d], "epoch": d[0]["metrics"],
+              "csv_rows": len(rows), "files": sorted(p_.name for p_ in run.iterdir()),
+              "launches_by_rank": [r["launches"] for r in d]}
+        res["d_trainer"] = rd
+        log(f"phase 19 (d) Trainer across the ranks: {json.dumps(rd)}")
+        check(d[0]["metrics"] == d[1]["metrics"], "both ranks report the same epoch figures")
+        check(d[0]["checksum"] == d[1]["checksum"], "both Trainer ranks hold the same weights")
+        check(len(rows) == 1 and rd["files"] == ["best.ckpt", "last.ckpt", "training_log.csv"],
+              "the primary alone wrote one CSV row and the checkpoints")
+        steps_a_rank = (n_train // PAR_RANKS) // bt
+        val_a_rank = -(-(n_val // PAR_RANKS) // bt)
+        if on_card:
+            for r in d:
+                want_only("Trainer epoch, one rank", r["launches"],
+                          {"sae_encode_topk_fused": steps_a_rank + val_a_rank,
+                           "sae_decode_fused": steps_a_rank + val_a_rank})
+        launches_by_path["dp_trainer"] = {n: sum(r["launches"][n] for r in d) for n in KERNELS}
+        shutil.rmtree(run)
+
+        # (e) TP step
+        g_e = flat_to_named(torch, np.load(work / "grad_e.npy", mmap_mode="r"), model)
+        ok, worst, floored = envelope_check(g_e, ref["e"]["g"], None, ref["e"]["env"])
+        re_ = {"loss": e[0]["steps"][0]["terms"][0], "loss_one_process_plain_route":
+               ref["e"]["loss"], "loss_envelope": ref["e"]["loss_env"],
+               "grad_vs_one_process_plain_route": worst,
+               "step_ms_by_rank": [r["steps"][0]["ms"] for r in e],
+               "peak_gib_by_rank": [r["peak_bytes"] / 2**30 for r in e],
+               "launches_by_rank": [r["launches"] for r in e]}
+        res["e_tp"] = re_
+        log(f"phase 19 (e) TP step: {json.dumps(re_)}")
+        check(within_loss_envelope(re_["loss"], ref["e"]["loss"], ref["e"]["loss_env"]),
+              "the TP step's loss agrees with the one-process plain-route step's")
+        check(ok, "every gradient of the TP step is within TRAIN_ENVELOPE of the one-process "
+                  "plain-route step's")
+        check(e[0]["steps"][0]["terms"] == e[1]["steps"][0]["terms"],
+              "both TP ranks compute the same loss")
+        check(all(n == 0 for r in e for n in r["launches"].values()),
+              "under TP no SAE kernel (rows 1-3, 5) is launched: the plain route")
+        launches_by_path["tp_train"] = {n: sum(r["launches"][n] for r in e) for n in KERNELS}
+        del ref, g_a, g_b, g_e
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (f) DP serving: two replicas on the card, each batch cut in halves
+    devices = [device] * PAR_RANKS
+    _, dp_fn, _ = build_scorer_from_params(exp, model.state_dict(), batch, "int16", device,
+                                           devices=devices)
+    _, one_fn, _ = build_scorer_from_params(exp, model.state_dict(), batch // PAR_RANKS,
+                                            "int16", device, warmup=False)
+    wire_b = to_wire(np.resize(wavs, (batch, cut)).astype(np.float32), "int16")
+    zero_counts()
+    got = dp_fn(wire_b)
+    launched = counts()
+    halves = torch.cat([one_fn(h) for h in np.split(wire_b, PAR_RANKS)])
+    diff = float(np.abs(log_probs_to_scores(got) - log_probs_to_scores(halves)).max())
+    sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(PAR_SERVE_BATCHES):
+        dp_fn(wire_b)
+    sync(torch, device)
+    rf = {"replicas": len(devices), "batch": batch, "max_score_diff_vs_one_replica": diff,
+          "utts_per_s": PAR_SERVE_BATCHES * batch / (time.perf_counter() - t0),
+          "phase_3_score_utts_per_s": score_utts_per_s, "launches": launched}
+    res["f_dp_serving"] = rf
+    log(f"phase 19 (f) DP serving, {len(devices)} replicas on one card: {json.dumps(rf)}")
+    check(diff <= SERVE_TOL, "the DP scorer's scores are the one-replica scorer's on the halves")
+    if on_card:
+        want_only("DP serving batch", launched, {"sae_encode_topk_fused": PAR_RANKS})
+    launches_by_path["dp_serving"] = launched
+    del dp_fn, one_fn
+    return res, launches_by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2912,6 +3369,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-only", action="store_true",
                     help="phases 1 and 18 alone, for work on the entry points (a partial "
                          "run: it prints no result lines)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1 and 19 alone, for work on training across ranks and "
+                         "serving over several devices (a partial run: no result lines)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
                          "parent's): phase 2 times its wrappers of rows 1-5 and 8 beside "
@@ -3016,6 +3476,16 @@ def main(argv=None) -> int:
         phase_cli(torch, device, model, exp, batch, args.seed, counts, zero_counts, want_only,
                   None, None)
         log(f"phase 18 in {time.perf_counter() - t_start:.1f} s (with phase 1)")
+        return 0
+    if args.parallel_only:
+        log("--parallel-only: phase 19 alone on the flagship's seeded weights (a partial run: "
+            "no result lines)")
+        model = Detector(cfg, device=device,
+                         generator=torch.Generator(device=device).manual_seed(args.seed))
+        wavs = synthetic_wavs(FULL_BATCHES * batch + batch // 5 + 1, cut, args.seed)
+        phase_parallel(torch, tk, device, model, exp, wavs, batch, args.seed, counts,
+                       zero_counts, want_only, None)
+        log(f"phase 19 in {time.perf_counter() - t_start:.1f} s (with phase 1)")
         return 0
 
     # -- phase 2: kernels against their plain versions ----------------------
@@ -3964,6 +4434,19 @@ def main(argv=None) -> int:
     cli_res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 18 in {cli_res['phase_seconds']:.1f} s")
 
+    # -- phase 19: training across ranks, serving over several devices --------------------
+    restore()
+    if on_card:
+        torch.cuda.empty_cache()  # the ranks share the card
+    t_phase = time.perf_counter()
+    par_res, par_launches = phase_parallel(
+        torch, tk, device, model, exp, wavs, batch, args.seed, counts, zero_counts, want_only,
+        results["flagship"]["score_utts_per_s"])
+    for label, launched in par_launches.items():
+        results[label] = {"launches": launched}
+    par_res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 in {par_res['phase_seconds']:.1f} s")
+
     for row in rows:
         by_path = {label: res["launches"][row["name"]] for label, res in results.items()}
         row["launches"] = sum(by_path.values())
@@ -3995,7 +4478,7 @@ def main(argv=None) -> int:
                               "long_clip": long_res, "sequence_parallel": sp_res,
                               "train": train_res, "trainer": trainer_res,
                               "offline": offline_res, "sls": sls_res, "cpc": cpc_res,
-                              "cli": cli_res}}))
+                              "cli": cli_res, "parallel": par_res}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,17 @@ JAX CLI honours) asks for the CPU, and without a card and without it the
 run raises.  ``--seq_parallel N`` runs a process a rank: inside an
 N-rank job (torchrun, ``parallel/distributed.initialize``) its ranks,
 else N ranks spawned on this host (``parallel/launch.py``), which share
-its cards.  ``--model_parallel`` > 1 raises (ROADMAP M5).
+its cards.
+
+Training across ranks: inside a job (torchrun, or the
+``SLS_TPU_COORDINATOR`` / ``SLS_TPU_NUM_PROCESSES`` /
+``SLS_TPU_PROCESS_ID`` variables of ``parallel/distributed.initialize``)
+every rank runs this command and the trainer trains data parallel
+(``train/loop.py``), each rank on its shard of the train and dev lists;
+no flag asks for it, as in the JAX CLI.  ``--model_parallel M`` trains
+tensor parallel over M ranks of one host (``parallel/tensor.py``):
+inside a job whose ranks M divides, those ranks; else M ranks spawned on
+this host, as ``--seq_parallel`` spawns them.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from sls_tpu_torch.device import resolve_device
 from sls_tpu_torch.parallel import distributed as dist
 
 PLATFORM_ENV = "SLS_TPU_PLATFORM"
+TRAIN_JOB_TIMEOUT_S = 7 * 86400.0  # a spawned --model_parallel job, and its collectives
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,8 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capture a torch.profiler trace of N early steps "
                    "into <run dir>/profile (cli/profile_diff reads it)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel degree; > 1 is not ported yet "
-                   "(ROADMAP M5) and raises")
+                   help="tensor-parallel degree over the ranks of one host "
+                   "(parallel/tensor.py): the ranks of a job, else spawned "
+                   "on this host; 1 = off")
     # checkpointing (reference: main.py:420-423,462-464)
     p.add_argument("--model_dir", type=str, default="models")
     p.add_argument("--model_path", type=str, default=None,
@@ -298,9 +310,9 @@ def run_eval(args, cfg: ExperimentConfig, trainer) -> int:
     index, default_out = eval_index(args)
     seq_parallel = args.seq_parallel > 1
     if dist.process_count() > 1 and not seq_parallel:
-        # each process scores its own shard; the part files are merged
+        # each data shard is scored on its own; the part files are merged
         # by the primary
-        index = index.host_shard(dist.process_index(), dist.process_count())
+        index = index.host_shard(*trainer.data_shard())
     out = args.eval_output or default_out
     if not args.full_utterance:
         loader = BatchLoader(index, batch_size=args.batch_size, shuffle=False,
@@ -379,10 +391,9 @@ def run_train(args, cfg: ExperimentConfig, trainer) -> None:
                                        ext=args.audio_ext)
     if dist.process_count() > 1:
         # equal-length train shards keep the ranks in step; dev shards
-        # cover every utterance
-        train_index = train_index.host_shard(dist.process_index(), dist.process_count(),
-                                             drop_remainder=True)
-        dev_index = dev_index.host_shard(dist.process_index(), dist.process_count())
+        # cover every utterance (a shard a data coordinate)
+        train_index = train_index.host_shard(*trainer.data_shard(), drop_remainder=True)
+        dev_index = dev_index.host_shard(*trainer.data_shard())
     limit = 5 if args.quick_test else None
     wire = _wire_dtype(args)
     train_loader = BatchLoader(train_index, args.batch_size, shuffle=True,
@@ -425,16 +436,19 @@ def main(argv=None) -> int:
 
     # joins a torchrun / SLS_TPU_COORDINATOR job; a no-op otherwise
     dist.initialize(device_type=_device_type())
-    if args.seq_parallel > 1 and dist.process_count() == 1:
+    spawn = max(args.seq_parallel, args.model_parallel)
+    if spawn > 1 and dist.process_count() == 1:
         # no job: a job of N ranks on this host, each running this
         # command (``main`` again, inside the job); this process holds
         # no model meanwhile
         from sls_tpu_torch.parallel.launch import launch
 
         device = platform_device()
-        print(f"--seq_parallel {args.seq_parallel}: spawning {args.seq_parallel} ranks "
-              f"on {device.type}", flush=True)
-        return max(launch(main, args.seq_parallel, (argv,), device_type=device.type))
+        flag = "--seq_parallel" if args.seq_parallel > 1 else "--model_parallel"
+        print(f"{flag} {spawn}: spawning {spawn} ranks on {device.type}", flush=True)
+        # a training job runs for as long as it trains
+        limit = 600.0 if args.seq_parallel > 1 else TRAIN_JOB_TIMEOUT_S
+        return max(launch(main, spawn, (argv,), device_type=device.type, timeout_s=limit))
     if args.seq_parallel > 1 and dist.process_count() != args.seq_parallel:
         print(f"ERROR: --seq_parallel {args.seq_parallel} in a job of "
               f"{dist.process_count()} ranks: start {args.seq_parallel}")

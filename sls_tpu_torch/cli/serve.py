@@ -17,8 +17,11 @@ artifact of ``cli/export`` (``serve/export.py``).  Scores follow the
 offline score-file contract (``scores/writer.log_probs_to_scores``): a
 served score equals the score file's for the same audio at the same
 batch shape.  It runs on the card; ``SLS_TPU_PLATFORM=cpu`` asks for the
-CPU.  ``--dp`` (data-parallel serving over several cards) is not ported
-yet (ROADMAP M5) and exits 2.
+CPU.  ``--dp N`` serves one replica on each of ``cuda:0 .. N-1``, every
+engine batch cut over them (``serve/scorer.py``); ``--batch`` (and each
+bucket) must divide by N.  It exits 2 when N exceeds the visible cards,
+and with ``--from_export``, as the reference does.  On the CPU it serves
+N replicas there.
 """
 
 from __future__ import annotations
@@ -55,13 +58,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "LOSSY)")
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel serving over N devices (0 = single "
-                        "device); not ported yet (ROADMAP M5): N > 0 exits 2")
+                        "device): every engine batch is cut over one model "
+                        "replica a card; --batch must be divisible by N")
     int8 = p.add_mutually_exclusive_group()
     int8.add_argument("--int8", dest="int8", action="store_true",
                       default=None, help="force int8 serving GEMMs on")
     int8.add_argument("--no_int8", dest="int8", action="store_false",
                       help="force the exact bf16 path")
     return p
+
+
+def dp_devices(n: int):
+    """The devices of ``--dp n``: ``cuda:0 .. n-1``, or n times the CPU
+    under ``SLS_TPU_PLATFORM=cpu``; an error line (a string) when n
+    exceeds the visible cards."""
+    import torch
+
+    from sls_tpu_torch.cli.main import _device_type
+
+    if _device_type() == "cpu":
+        return [torch.device("cpu")] * n
+    visible = torch.cuda.device_count()
+    if n > visible:
+        return (f"ERROR: --dp {n} needs {n} cards; {visible} visible "
+                "(CUDA_VISIBLE_DEVICES)")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def main(argv=None) -> int:
@@ -77,15 +98,16 @@ def main(argv=None) -> int:
             print("ERROR: --buckets needs a run dir (exported programs "
                   "are fixed at one batch shape and cannot retrace)")
             return 2
-    if args.dp:
-        print("ERROR: --dp is not ported yet: build_scorer has no mesh in "
-              "the port (ROADMAP M5, with the rest of serving's M8)")
-        return 2
-
     from sls_tpu_torch.cli.main import platform_device
     from sls_tpu_torch.serve.engine import BatchingEngine
     from sls_tpu_torch.serve.server import make_server
 
+    devices = None
+    if args.dp:
+        devices = dp_devices(args.dp)
+        if isinstance(devices, str):
+            print(devices)
+            return 2
     device = platform_device()
     if args.from_export:
         from sls_tpu_torch.serve.export import build_scorer_from_export
@@ -105,7 +127,7 @@ def main(argv=None) -> int:
         cfg, forward, cut = build_scorer(
             args.run_dir, args.checkpoint, int8=args.int8,
             wire_dtype=args.wire, batch_size=args.batch,
-            bucket_sizes=buckets, device=device,
+            bucket_sizes=buckets, device=device, devices=devices,
         )
         family = cfg.model.sae.variant if cfg.model.use_sae else "sls"
         batch, wire = args.batch, args.wire
@@ -117,7 +139,8 @@ def main(argv=None) -> int:
     httpd = make_server(engine, args.host, args.port)
     print(
         f"serving {family} model on http://{args.host}:{httpd.server_address[1]} "
-        f"(batch={batch}, wire={wire}, cut={cut}, device={device})",
+        f"(batch={batch}, wire={wire}, cut={cut}, "
+        f"device={device if devices is None else [str(d) for d in devices]})",
         flush=True,
     )
     try:

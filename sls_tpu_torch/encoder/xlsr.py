@@ -32,8 +32,19 @@ drawn from ``g`` by ``dropout``; layerdrop computes the layer and
 selects (``torch.where``), so a dropped layer's parameters still get a
 (zero) gradient; ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``), whose replay redraws the same masks from
-the layer's starting generator state.  Sequence parallelism does not
-train yet (``seq_axis`` with ``train`` raises).
+the layer's starting generator state.  The layerdrop draws come from
+``layerdrop_generator`` when one is given (default ``g`` itself, which
+one rank uses for both): a data-parallel step hands every rank one
+generator seeded alike for them, so all ranks drop the same layers, as
+the reference's one draw for the global batch does, and a generator of
+the rank's own for the masks, so ranks do not repeat one mask over
+different rows.  Sequence parallelism does not train (``seq_axis``
+with ``train`` raises).
+
+Tensor parallelism (``parallel/tensor.py``): a layer whose ``fc1`` /
+``fc2`` were cut over the mesh's 'model' axis (``tp`` set) runs its FFN
+column- then row-parallel, its activation dropout drawn at the whole
+width and cut; the rest of the layer runs whole on every rank.
 
 Sequence parallelism (``seq_axis``).  The reference pins the frame axis
 of the layer stack's activations to a mesh axis and lets the compiler
@@ -71,6 +82,7 @@ from sls_tpu_torch.kernels.frontend import (
     tail_lengths,
 )
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
+from sls_tpu_torch.parallel.tensor import column_linear, cut_dropout, row_linear
 from sls_tpu_torch.quant.int8 import int8_dot
 
 
@@ -345,7 +357,10 @@ class SelfAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-LN (XLS-R) or post-LN transformer block; with ``generator``
     (``train``) dropout after the FFN's activation and on the attention's
-    and the FFN's outputs."""
+    and the FFN's outputs.  ``tp`` is set when ``fc1`` / ``fc2`` are cut
+    over the mesh's 'model' axis (``parallel/tensor.py``)."""
+
+    tp = None
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -359,14 +374,17 @@ class TransformerLayer(nn.Module):
         self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device, cfg.int8_serving)
 
     def _ffn(self, h: torch.Tensor, train: bool, gen: Optional[torch.Generator]) -> torch.Tensor:
-        cfg = self.config
-        h = self.fc1(h, train)
+        cfg, tp = self.config, self.tp
+        h = self.fc1(h, train) if tp is None else column_linear(self.fc1, h, tp)
         if cfg.activation == "gelu":
             h = gelu_fp32(h, cfg.use_approx_gelu, cfg.dtype)
         else:
             h = torch.relu(h.float()).to(cfg.dtype)
-        h = dropout(h, cfg.activation_dropout, gen)
-        return dropout(self.fc2(h, train), cfg.dropout, gen)
+        if tp is None:
+            h = dropout(h, cfg.activation_dropout, gen)
+            return dropout(self.fc2(h, train), cfg.dropout, gen)
+        h = cut_dropout(h, cfg.activation_dropout, gen, tp)
+        return dropout(row_linear(self.fc2, h, tp), cfg.dropout, gen)
 
     def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -422,19 +440,22 @@ class XLSREncoder(nn.Module):
 
     def forward(self, wav: torch.Tensor, return_hidden_states: bool = False,
                 shard: Optional[SeqShard] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                layerdrop_generator: Optional[torch.Generator] = None):
         """``shard`` is ``shard_for(wav, mesh)``, which the caller builds
         once and also needs for what follows the encoder.  ``train`` takes
-        the training routes, with every dropout mask and layerdrop draw
-        from ``generator`` (required then, on the encoder's device)."""
+        the training routes, with every dropout mask from ``generator``
+        (required then, on the encoder's device) and every layerdrop draw
+        from ``layerdrop_generator`` (default ``generator``)."""
         cfg = self.config
         if train and cfg.seq_axis:
             raise NotImplementedError(
-                "training under sequence parallelism (seq_axis) is not ported: ROADMAP.md "
-                "section 1, the data- and tensor-parallel training slice")
+                "training under sequence parallelism (seq_axis) is not ported (ROADMAP.md "
+                "section 1); train across ranks data or tensor parallel")
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout and layerdrop")
         gen = generator if train else None
+        ld_gen = layerdrop_generator if layerdrop_generator is not None else gen
         if (shard is None) != (not cfg.seq_axis):
             raise ValueError(f"XLSRConfig.seq_axis={cfg.seq_axis!r} and shard={shard!r} do "
                              "not go together: pass shard=shard_for(wav, mesh)")
@@ -453,7 +474,7 @@ class XLSREncoder(nn.Module):
             x = shard.take_frames(x)
         hidden_states: List[torch.Tensor] = []
         for layer in self.layers:
-            x = layer(x, shard) if gen is None else self._train_layer(layer, x, gen)
+            x = layer(x, shard) if gen is None else self._train_layer(layer, x, gen, ld_gen)
             if return_hidden_states:
                 hidden_states.append(x)
         if cfg.layer_norm_first:
@@ -462,18 +483,21 @@ class XLSREncoder(nn.Module):
             return x, hidden_states
         return x
 
-    def _train_layer(self, layer: TransformerLayer, x: torch.Tensor,
-                     gen: torch.Generator) -> torch.Tensor:
-        """One layer under ``train``: layerdrop as compute-and-select, and
-        with ``remat`` the layer checkpointed.  The checkpointed function
-        draws its masks from a generator set to ``gen``'s state at the
-        layer's start, so the backward's replay draws the same masks; then
-        ``gen`` moves on to where the layer left it, as without ``remat``.
-        The global generators are not used, so their state is not kept."""
+    def _train_layer(self, layer: TransformerLayer, x: torch.Tensor, gen: torch.Generator,
+                     ld_gen: torch.Generator) -> torch.Tensor:
+        """One layer under ``train``: layerdrop as compute-and-select (its
+        draw from ``ld_gen``, which may be ``gen``), and with ``remat`` the
+        layer checkpointed.  The checkpointed function draws its masks
+        from a generator set to ``gen``'s state at the layer's start, so
+        the backward's replay draws the same masks; then ``gen`` moves on
+        to where the layer left it, as without ``remat``.  The layerdrop
+        draw is made before, outside the replayed function, so both
+        generators replay as they ran.  The global generators are not
+        used, so their state is not kept."""
         cfg = self.config
         keep = None
         if cfg.layerdrop > 0.0:
-            keep = torch.rand((), generator=gen, device=x.device) >= cfg.layerdrop
+            keep = torch.rand((), generator=ld_gen, device=x.device) >= cfg.layerdrop
         if cfg.remat and torch.is_grad_enabled():
             start, end = gen.get_state(), []
 

@@ -19,7 +19,12 @@ batch, padded tail rows too), the running ones otherwise.  Its running
 statistics are buffers that ``forward`` never writes: under ``train``
 it returns the batch's statistics, and the train step commits the
 running update (flax's momentum 0.9, biased variance) only when the step
-is finite (``models/sls.py``).
+is finite (``models/sls.py``).  In a data-parallel step (``group``, the
+mesh's 'data' group) the statistics are the global batch's: the sums of
+x and x^2 and the element count are all-reduced over the group
+(``parallel/distributed.py::sum_over``, differentiable), so every rank
+normalises with the same mean and variance in flax's numerics and
+commits the same running statistics.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sls_tpu_torch.encoder.xlsr import Dense
+from sls_tpu_torch.parallel.distributed import group_size, sum_over
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
@@ -78,11 +84,18 @@ class FirstBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(1, device=device))
         self.register_buffer("running_var", torch.ones(1, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool = False
+    def forward(self, x: torch.Tensor, train: bool = False, group=None
                 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """(normalised x, (batch mean, batch biased variance) under
-        ``train``, else None).  x is fp32."""
-        if train:
+        ``train``, else None).  x is fp32.  With ``group`` the batch is the
+        group's global batch (module docstring)."""
+        if train and group is not None and group_size(group) > 1:
+            sums = sum_over(torch.stack([x.sum(), (x * x).sum()]), group)
+            n = float(x.numel() * group_size(group))  # the ranks hold equal batches
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+            stats = (mean.detach().reshape(1), var.detach().reshape(1))
+        elif train:
             mean = x.mean()
             var = torch.clamp((x * x).mean() - mean * mean, min=0.0)
             stats = (mean.detach().reshape(1), var.detach().reshape(1))
@@ -140,7 +153,7 @@ class SLSHead(nn.Module):
         return torch.sigmoid(self.fc0(pooled))[..., 0]
 
     def pooled(self, hidden_states: Union[torch.Tensor, Sequence[torch.Tensor]],
-               train: bool = False
+               train: bool = False, group=None
                ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """(fc1's input: the gated sum, normalised, SELU, max-pooled and
         flattened [B, F] fp32; the BatchNorm's batch statistics under
@@ -149,7 +162,7 @@ class SLSHead(nn.Module):
             else list(hidden_states)
         gate = self.gates(layers)
         fused = GatedLayerSum.apply(gate.to(layers[0].dtype), *layers)  # [B, T, C] fp32
-        x, stats = self.first_bn(fused, train)
+        x, stats = self.first_bn(fused, train, group)
         x = F.selu(x)
         B, T, C = x.shape
         tp, cp = (T // 3) * 3, (C // 3) * 3
@@ -162,11 +175,11 @@ class SLSHead(nn.Module):
         return torch.log_softmax(F.selu(self.fc3(x)), dim=-1)
 
     def forward(self, hidden_states: Union[torch.Tensor, List[torch.Tensor]],
-                train: bool = False
+                train: bool = False, group=None
                 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """hidden_states: the encoder's per-layer outputs, a list of L
         [B, T, C] or stacked [L, B, T, C] -> (log-probabilities [B,
         num_classes], the BatchNorm's batch statistics under ``train``,
-        else None)."""
-        x, stats = self.pooled(hidden_states, train)
+        else None).  ``group``: a data-parallel step's 'data' group."""
+        x, stats = self.pooled(hidden_states, train, group)
         return self.classify(x), stats

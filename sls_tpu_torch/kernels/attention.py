@@ -253,7 +253,7 @@ def flash_attention_long(q, k, v, num_heads: int, block_q: int = 256) -> torch.T
     if q.device.type == "cpu":
         return flash_attention_long_plain(q, k, v, num_heads)
     out = _attention_cuda(q, k, v, num_heads)
-    flash_attention_long.launches += 1
+    build.count_launch(flash_attention_long)
     return out
 
 
@@ -289,7 +289,7 @@ def sp_flash_attention_long(q, k, v, num_heads: int, group=None,
     if group is not None:
         k, v = _gather_kv(k, v, group)
     out = _attention_cuda(q, k, v, num_heads)
-    sp_flash_attention_long.launches += 1
+    build.count_launch(sp_flash_attention_long)
     return out
 
 
@@ -315,7 +315,7 @@ def _fused_attention_cuda(q, k, v) -> torch.Tensor:
         if t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B, T, H, Dh] like q")
     out = _attention_cuda(q, k, v, shape[2])  # [B, T, H, Dh] is [B, T, H*Dh] in memory
-    fused_attention.launches += 1
+    build.count_launch(fused_attention)
     return out
 
 
@@ -336,7 +336,7 @@ def fused_attention_heads(q, k, v, num_heads: int, h_blk: int = 2) -> torch.Tens
     if q.device.type == "cpu":
         return fused_attention_heads_plain(q, k, v, num_heads)
     out = _attention_cuda(q, k, v, num_heads)
-    fused_attention_heads.launches += 1
+    build.count_launch(fused_attention_heads)
     return out
 
 

@@ -105,3 +105,13 @@ def check(err: int, what: str) -> None:
     """Raise when a kernel entry returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: serving replicas
+    launch from host threads of their own (``serve/scorer.py``)."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -272,7 +272,7 @@ def _pairs(flat: Sequence[int]) -> Tuple[Spec, ...]:
 def _frontend_op_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gelu, eps):
     out = _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, _pairs(specs),
                          approx_gelu, eps)
-    frontend_tail_fused.launches += 1
+    build.count_launch(frontend_tail_fused)
     return out
 
 

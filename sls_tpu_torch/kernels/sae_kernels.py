@@ -399,7 +399,7 @@ def _encode_topk_cuda(x, w_enc, b_enc, b_dec, k: int) -> torch.Tensor:
         err = fn(x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), b_dec.data_ptr(),
                  out.data_ptr(), scratch.data_ptr(), n, d, m, k, stream)
     build.check(err, "sae_encode_topk")
-    sae_encode_topk_fused.launches += 1
+    build.count_launch(sae_encode_topk_fused)
     return out
 
 
@@ -421,7 +421,7 @@ def _encode_cuda(x, w_enc, b_enc, b_dec) -> torch.Tensor:
         err = fn(x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), b_dec.data_ptr(),
                  out.data_ptr(), scratch.data_ptr(), n, d, m, stream)
     build.check(err, "sae_encode")
-    sae_encode_fused.launches += 1
+    build.count_launch(sae_encode_fused)
     return out
 
 
@@ -442,7 +442,7 @@ def _window_vote_cuda(acts, k: int, window: int) -> torch.Tensor:
         err = fn(acts.data_ptr(), out.data_ptr(), B, T, M, k, stride, num_windows, n_chunks,
                  stream)
     build.check(err, "window_vote")
-    window_vote_fused.launches += 1
+    build.count_launch(window_vote_fused)
     return out
 
 
@@ -463,7 +463,7 @@ def _decode_cuda(codes, w_dec, b_dec) -> torch.Tensor:
         err = fn(codes.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), out.data_ptr(),
                  n, m, d, stream)
     build.check(err, "sae_decode")
-    sae_decode_fused.launches += 1
+    build.count_launch(sae_decode_fused)
     return out
 
 
@@ -550,7 +550,7 @@ def topk_sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), n, m, k, stream)
     build.check(err, "topk_sparsify")
-    topk_sparsify.launches += 1
+    build.count_launch(topk_sparsify)
     return out
 
 

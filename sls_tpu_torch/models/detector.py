@@ -32,6 +32,14 @@ rank's rows and frames, the per-timestep SAE encodes them as they are
 all-reduced over the sequence axis, and every rank returns every row's
 ``log_probs`` and the global ``sae_loss``.  ``features``, ``codes`` and
 ``recon`` stay this rank's part.
+
+In a data-parallel train step the step passes its mesh's 'data' group
+(``data_group``): ``sae_loss`` and ``cpc_loss`` are then this rank's
+shares of the global batch's losses (``sae/topk.py::reconstruction_loss``,
+``sae/cpc.py``), which sum over the ranks to the reference's values, and
+``layerdrop_generator`` (alike on every rank) draws the layerdrop.  Under
+tensor parallelism (``parallel/tensor.py::shard_model_``) the cut
+modules run their own forward; nothing here changes.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from sls_tpu_torch.config import ModelConfig
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.encoder.xlsr import XLSREncoder, init_weights_
 from sls_tpu_torch.heads.classifier import MeanPoolClassifier
+from sls_tpu_torch.parallel.distributed import group_size
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.sae.cpc import CPCHead
 from sls_tpu_torch.sae.sparsify import aggregate_windows_mean
@@ -82,14 +91,16 @@ class Detector(nn.Module):
                 init_weights_(self.cpc, generator)
 
     def _encode(self, wav: torch.Tensor, mesh: Optional[Mesh], train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                layerdrop_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[SeqShard], Optional[SeqShard]]:
         """fp32 encoder features; how the batch is cut on ``mesh`` (None
         without ``seq_axis``); and that cut again if the features are
         still this rank's frames, None once they are whole."""
         shard = self.encoder.shard_for(wav, mesh)
         with torch.no_grad() if self.config.freeze_encoder else nullcontext():
-            feats = self.encoder(wav, shard=shard, train=train, generator=generator)
+            feats = self.encoder(wav, shard=shard, train=train, generator=generator,
+                                 layerdrop_generator=layerdrop_generator)
         feats32 = feats.float()
         frames = shard
         if shard is not None and self.config.use_sae and not self.sae.row_parallel:
@@ -98,10 +109,15 @@ class Detector(nn.Module):
 
     def forward(self, wav: torch.Tensor, mesh: Optional[Mesh] = None, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                compute_cpc: bool = False) -> Dict[str, torch.Tensor]:
+                compute_cpc: bool = False, data_group=None,
+                layerdrop_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """``train`` takes the training routes with dropout from
-        ``generator`` (required then); ``compute_cpc`` computes the CPC
-        loss when the model has the head.  Returns a dict with:
+        ``generator`` (required then) and layerdrop from
+        ``layerdrop_generator`` (default ``generator``); ``compute_cpc``
+        computes the CPC loss when the model has the head; ``data_group``
+        makes the losses this rank's shares of a data-parallel step's
+        (module docstring).  Returns a dict with:
 
         log_probs  [B, 2]      log-softmax outputs (class 1 = bonafide)
         score      [B]         P(bonafide) = exp(log_probs[:, 1])
@@ -115,7 +131,8 @@ class Detector(nn.Module):
         cfg = self.config
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout")
-        feats32, shard, frames = self._encode(wav, mesh, train, generator)
+        feats32, shard, frames = self._encode(wav, mesh, train, generator, layerdrop_generator)
+        ranks = group_size(data_group) if data_group is not None else 1
         zero = torch.zeros((), dtype=torch.float32, device=feats32.device)
         out: Dict[str, torch.Tensor] = {"features": feats32}
         sae_loss = cpc_loss = zero
@@ -123,7 +140,7 @@ class Detector(nn.Module):
             codes = self.sae.encode(feats32)
             recon = self.sae.decode(codes)
             if shard is None:
-                sae_loss = reconstruction_loss(recon, feats32)
+                sae_loss = reconstruction_loss(recon, feats32, ranks)
             else:  # the mean over every row and frame, from this rank's sum
                 sq = torch.square(recon - feats32).sum()
                 if frames is not None:
@@ -137,7 +154,7 @@ class Detector(nn.Module):
                     raise NotImplementedError("the CPC loss under sequence parallelism: its "
                                               "negatives span the global batch")
                 windows = aggregate_windows_mean(codes, cfg.sae.window_size)
-                cpc_loss = self.cpc(windows)
+                cpc_loss = self.cpc(windows, data_group)
                 out["window_features"] = windows
         else:
             cls_in = feats32

@@ -15,8 +15,11 @@ layer output feeds the SLS head (``heads/sls.py``).
   bit as they were.
 - ``layer_gate_profile``: which layers the head weighs most.
 - ``SLSTrainer``: the epoch loop of ``train/loop.py::BaseTrainer`` on
-  these steps; checkpoints carry the running statistics (they are
-  buffers of the model's ``state_dict``).  ``resume`` takes this
+  these steps, in one process or across the ranks of a job (data
+  parallel: the BatchNorm's statistics are the global batch's,
+  ``heads/sls.py``); checkpoints carry the running statistics (they are
+  buffers of the model's ``state_dict``).  ``model_parallel > 1``
+  raises, as the reference's does.  ``resume`` takes this
   package's checkpoints, a JAX ``SLSTrainer`` run directory and, weights
   only, an upstream ``.pth``.
 
@@ -43,15 +46,17 @@ from sls_tpu_torch.convert import sls_detector_state_from_reference
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.encoder.xlsr import XLSREncoder, init_weights_
 from sls_tpu_torch.heads.sls import SLSHead
+from sls_tpu_torch.parallel.mesh import Mesh, axis_of
 from sls_tpu_torch.train.loop import BaseTrainer
 from sls_tpu_torch.train.loss import weighted_nll
 from sls_tpu_torch.train.steps import (
     TrainState,
     create_train_state,
     dequantize_wire,
-    dropout_generator,
+    global_terms,
     make_optimizer,
     restore_train_state,
+    step_generators,
     to_device,
     train_state_tree,
 )
@@ -77,17 +82,22 @@ class SLSDetector(nn.Module):
             init_weights_(self.encoder, generator)
             init_weights_(self.sls_head, generator)
 
-    def _encode(self, wav: torch.Tensor, train: bool, generator: Optional[torch.Generator]
+    def _encode(self, wav: torch.Tensor, train: bool, generator: Optional[torch.Generator],
+                layerdrop_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         with torch.no_grad() if self.config.freeze_encoder else nullcontext():
             return self.encoder(wav, return_hidden_states=True, train=train,
-                                generator=generator)
+                                generator=generator, layerdrop_generator=layerdrop_generator)
 
     def forward(self, wav: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, data_group=None,
+                layerdrop_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """``train`` takes the encoder's training routes with dropout from
-        ``generator`` (required then) and normalises with the batch's
-        statistics.  Returns a dict with:
+        ``generator`` (required then) and layerdrop from
+        ``layerdrop_generator`` (default ``generator``), and normalises
+        with the batch's statistics (with ``data_group``, the global
+        batch's).  Returns a dict with:
 
         log_probs  [B, 2]      log-softmax outputs (class 1 = bonafide)
         score      [B]         P(bonafide) = exp(log_probs[:, 1])
@@ -96,8 +106,8 @@ class SLSDetector(nn.Module):
         """
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout")
-        final, hiddens = self._encode(wav, train, generator)
-        log_probs, stats = self.sls_head(hiddens, train)
+        final, hiddens = self._encode(wav, train, generator, layerdrop_generator)
+        log_probs, stats = self.sls_head(hiddens, train, data_group)
         out = {"log_probs": log_probs, "score": torch.exp(log_probs[:, 1]),
                "features": final.float()}
         if stats is not None:
@@ -117,32 +127,37 @@ create_sls_train_state = create_train_state
 
 
 def make_sls_train_step(model: SLSDetector, cfg: ExperimentConfig,
-                        device: DeviceLike = "cuda") -> Callable:
+                        device: DeviceLike = "cuda", mesh: Optional[Mesh] = None) -> Callable:
     """step(state, wav [B, S] on the wire, labels [B], valid [B],
     base_seed) -> (state, metrics), as ``train/steps.py::make_train_step``,
     and the BatchNorm's running update committed where the loss is
     finite.  ``metrics``: loss, scores [B], correct, finite, and cls_loss,
-    sae_loss and cpc_loss at 0 (module docstring), all on the device."""
+    sae_loss and cpc_loss at 0 (module docstring), all on the device.
+    ``mesh``: the global batch's step over its 'data' axis, as the
+    flagship's (the statistics too are the global batch's)."""
     dev = resolve_device(device)
     tcfg = cfg.train
     opt = make_optimizer(tcfg.lr, tcfg.weight_decay)
     class_weights = torch.tensor(tcfg.loss_weights, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    data_group = axis_of(mesh, "data")[0]
 
     def step(state: TrainState, wav, labels, valid, base_seed: int):
         w = dequantize_wire(to_device(wav, dev))
         y, ok = to_device(labels, dev).long(), to_device(valid, dev).float()
-        gen = dropout_generator(base_seed, state.calls, dev)
+        gen, ld_gen = step_generators(base_seed, state.calls, dev, mesh)
         state.calls += 1
         model.zero_grad(set_to_none=True)
-        out = model(w, train=True, generator=gen)
-        loss = weighted_nll(out["log_probs"], y, class_weights, ok)
+        out = model(w, train=True, generator=gen, data_group=data_group,
+                    layerdrop_generator=ld_gen)
+        loss = weighted_nll(out["log_probs"], y, class_weights, ok, group=data_group)
         loss.backward()
-        finite = torch.isfinite(loss)
-        opt.apply(state, finite)
+        g, terms = global_terms(state, loss.detach()[None], mesh)
+        finite = torch.isfinite(terms[0])
+        opt.update(state, g, finite)
         model.sls_head.first_bn.commit(out["bn_stats"], finite)
         metrics = {
-            "loss": loss.detach(),
+            "loss": terms[0],
             "cls_loss": zero,
             "sae_loss": zero,
             "cpc_loss": zero,
@@ -198,11 +213,18 @@ class SLSTrainer(BaseTrainer):
 
     log_prefix = "[sls] "
 
+    def _refuse(self, cfg: ExperimentConfig) -> None:
+        if cfg.train.model_parallel > 1:
+            raise ValueError(
+                "model_parallel > 1 is wired for the SAE Detector family "
+                "(parallel/tensor.py rules); the SLS parity model is data-parallel only")
+
     def _build_model_and_steps(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.train.seed)
         self.model = SLSDetector(self.cfg.model, device=self.device, generator=gen,
                                  cut_length=self.cfg.train.cut_length)
-        self.train_step = make_sls_train_step(self.model, self.cfg, device=self.device)
+        self.train_step = make_sls_train_step(self.model, self.cfg, device=self.device,
+                                              mesh=self.mesh)
         self.eval_step = make_sls_eval_step(self.model, device=self.device)
 
     def _create_state(self):
@@ -225,7 +247,6 @@ class SLSTrainer(BaseTrainer):
             raise RuntimeError("call init_state() before resume()")
         raw = torch.load(path, map_location="cpu", weights_only=True)
         state = raw.get("model", raw) if isinstance(raw, dict) else raw
-        self.model.load_state_dict(sls_detector_state_from_reference(state, self.cfg.model),
-                                   strict=True)
+        self._load_model_state(sls_detector_state_from_reference(state, self.cfg.model))
         self._torch_epoch_from(raw, path)
         return True

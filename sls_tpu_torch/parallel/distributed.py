@@ -14,14 +14,23 @@ module owns what makes the rest of the port multi-process-clean:
   collectives only and never moves the model off the card: ``gloo`` takes
   CUDA tensors and stages them through host memory itself.
 - Host-array collectives (``allgather_rows``, ``allgather_ragged_rows``,
-  ``allreduce_sum_scalars``), a tensor collective for activations
-  (``all_gather_cat``), IO gating (``is_primary``), per-process part files
-  (``part_path``, ``merge_part_files``) and a barrier (``sync_hosts``).
-  All of them are the identity in a single process.
-
-The reference's ``global_batch`` / ``fetch_global`` / ``local_rows``
-describe arrays that span processes; they belong to data-parallel
-training and come with that slice.
+  ``allreduce_sum_scalars``, over the world or one mesh axis's group), a
+  tensor collective for activations (``all_gather_cat``), IO gating
+  (``is_primary``), per-process part files (``part_path``,
+  ``merge_part_files``) and a barrier (``sync_hosts``).  All of them are
+  the identity in a single process.
+- The batch of a data-parallel step (``global_batch``, ``fetch_global``,
+  ``local_rows``).  The reference builds one array whose rows span the
+  processes; here each rank holds its own rows and the global batch is
+  their concatenation in rank order over the mesh's 'data' group, which
+  is what these helpers read and gather.
+- Loss terms across ranks: ``sum_over`` (an all-reduce whose backward
+  sums the ranks' gradients, as ``torch.distributed.nn.functional``'s)
+  and ``gather_over`` (an all-gather whose backward hands each rank the
+  summed gradient of its own rows).  A rank
+  computes its share of a global loss, the shares summing to the
+  reference's value, and the gradient all-reduce of the step sums the
+  shares' gradients.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
-from typing import Optional, Sequence
+import socket
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,50 +170,185 @@ def all_gather_cat(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     return out.contiguous()
 
 
-def allgather_rows(x) -> np.ndarray:
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (None: the world; 1 with no process group)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def allgather_rows(x, group=None) -> np.ndarray:
     """Concatenate per-process host arrays (same shape everywhere) in
-    process order.  Identity single-process."""
-    x = np.asarray(x)
-    if process_count() == 1:
-        return x
-    t = torch.from_numpy(np.ascontiguousarray(x)).to(_collective_device())
-    return all_gather_cat(t, dim=0).cpu().numpy()
-
-
-def allgather_ragged_rows(x) -> np.ndarray:
-    """``allgather_rows`` for per-process arrays of unequal leading size:
-    pads to the global max, gathers, and drops the padding.  Identity
+    process order over ``group`` (None: every process).  Identity
     single-process."""
     x = np.asarray(x)
-    if process_count() == 1:
+    if group_size(group) == 1:
         return x
-    lengths = allgather_rows(np.asarray([x.shape[0]], np.int64))
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(_collective_device())
+    return all_gather_cat(t, group, dim=0).cpu().numpy()
+
+
+def allgather_ragged_rows(x, group=None) -> np.ndarray:
+    """``allgather_rows`` for per-process arrays of unequal leading size:
+    pads to the group's max, gathers, and drops the padding.  Identity
+    single-process."""
+    x = np.asarray(x)
+    if group_size(group) == 1:
+        return x
+    lengths = allgather_rows(np.asarray([x.shape[0]], np.int64), group)
     max_len = int(lengths.max())
     pad = np.zeros((max_len - x.shape[0],) + x.shape[1:], x.dtype)
-    gathered = allgather_rows(np.concatenate([x, pad], axis=0))
-    parts = np.split(gathered, process_count(), axis=0)
+    gathered = allgather_rows(np.concatenate([x, pad], axis=0), group)
+    parts = np.split(gathered, group_size(group), axis=0)
     return np.concatenate([p[: int(n)] for p, n in zip(parts, lengths)], axis=0)
 
 
-def allreduce_sum_scalars(values: Sequence[float]) -> np.ndarray:
-    """Sum a small vector of host scalars across processes (identity
-    single-process), in float64 and in process order on every process."""
+def allreduce_sum_scalars(values: Sequence[float], group=None) -> np.ndarray:
+    """Sum a small vector of host scalars across the processes of
+    ``group`` (None: all; identity single-process), in float64 and in
+    process order on every process."""
     v = np.asarray(values, np.float64)
-    if process_count() == 1:
+    if group_size(group) == 1:
         return v
-    return allgather_rows(v[None, :]).sum(axis=0)
+    return allgather_rows(v[None, :], group).sum(axis=0)
 
 
-def part_path(out_path) -> str:
-    """Per-process output path: ``<out>.part<i>`` multi-process, ``out``
-    single-process."""
+# -- the global batch of a data-parallel step ---------------------------------------
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (numpy or tensor) on ``dev``, without waiting for the device:
+    a host array bound for a card goes up from pinned memory (a pageable
+    copy would wait)."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
+
+
+def global_batch(tree: Sequence[Any], mesh=None, axis: str = "data",
+                 device: Optional[torch.device] = None) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """(this rank's rows of each array of ``tree`` on ``device``, the
+    global batch's row count over the mesh's ``axis`` group).
+
+    Counterpart of the reference's ``global_batch``: every rank passes
+    its own rows (its ``host_shard``), all ranks the same number of them
+    (``host_shard(..., drop_remainder=True)``), and the global batch is
+    their concatenation in rank order.  The rows stay where they are;
+    the count is the local count times the group's size (no collective).
+    ``device`` defaults to this rank's card.  Single-process, or with no
+    mesh: the rows on the device and their own count."""
+    dev = torch.device(device) if device is not None else local_device()
+    arrays = tuple(to_device(x, dev) for x in tree)
+    n_local = int(arrays[0].shape[0]) if arrays else 0
+    group = mesh.groups.get(axis) if mesh is not None else None
+    return arrays, n_local * group_size(group)
+
+
+def fetch_global(x, mesh=None, axis: str = "data") -> np.ndarray:
+    """The global batch's rows of a per-rank array, on the host: every
+    rank's ``x`` (same shape everywhere) gathered over the mesh's
+    ``axis`` group in rank order.  Every rank of the group must call it.
+    Single-process, or with no mesh: ``x`` on the host."""
+    group = mesh.groups.get(axis) if mesh is not None else None
+    if torch.is_tensor(x):
+        x = x.detach()
+        if group_size(group) == 1:
+            return x.cpu().numpy()
+        return all_gather_cat(x.to(_collective_device()), group, dim=0).cpu().numpy()
+    return allgather_rows(np.asarray(x), group) if group_size(group) > 1 else np.asarray(x)
+
+
+def local_rows(x) -> np.ndarray:
+    """This rank's rows of a batch-sharded array, on the host.  Each rank
+    already holds only its own rows, so this is the identity (the
+    reference's slices its process's block out of a global array)."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+# -- loss terms across ranks -----------------------------------------------------------
+
+
+class _SumOver(torch.autograd.Function):
+    """An all-reduce (SUM) whose backward all-reduces the gradient: the
+    semantics of ``torch.distributed.nn.functional.all_reduce``, which
+    recent PyTorch marks deprecated."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, differentiable: the
+    backward sums the ranks' incoming gradients, which is the gradient
+    of a loss that is the sum of every rank's term.  ``x`` itself with no
+    group."""
+    if group is None or group_size(group) == 1:
+        return x
+    return _SumOver.apply(x, group)
+
+
+class _GatherOver(torch.autograd.Function):
+    """``all_gather_cat`` along ``dim`` whose backward sums the ranks'
+    gradients of the whole gathered tensor and hands each rank its own
+    slice.  ``torch.distributed.nn.functional.all_gather`` reduces the
+    gradient by an all-to-all under gloo, which gloo does not take for
+    CUDA tensors; one all-reduce of the (small) gathered gradient does
+    the same on every backend."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather_cat(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+def gather_over(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` over ``group`` concatenated along ``dim`` in rank
+    order, differentiable for a loss that is the sum of every rank's
+    term (``_GatherOver``).  ``x`` itself with no group."""
+    if group is None or group_size(group) == 1:
+        return x
+    return _GatherOver.apply(x, group, dim)
+
+
+def host_count() -> int:
+    """Hosts the job spans: distinct host names among its processes
+    (a collective; 1 single-process)."""
     if process_count() == 1:
+        return 1
+    names: list = [None] * process_count()
+    dist.all_gather_object(names, socket.gethostname())
+    return len(set(names))
+
+
+def part_path(out_path, index: Optional[int] = None, count: Optional[int] = None) -> str:
+    """Per-process output path: ``<out>.part<i>`` multi-process, ``out``
+    single-process.  ``index`` / ``count`` name the part and the number
+    of parts when they are not the process's (one writer per data
+    coordinate of a tensor-parallel job)."""
+    if (process_count() if count is None else count) == 1:
         return str(out_path)
-    return f"{out_path}.part{process_index()}"
+    return f"{out_path}.part{process_index() if index is None else index}"
 
 
-def merge_part_files(out_path) -> None:
-    """Merge the per-process ``<out>.part<i>`` files into ``out_path``.
+def merge_part_files(out_path, count: Optional[int] = None) -> None:
+    """Merge the per-process ``<out>.part<i>`` files (``count`` of them,
+    default one a process) into ``out_path``.
 
     Call on every process after each wrote its part (barriers inside);
     the primary concatenates in process order and removes the parts.
@@ -211,10 +356,12 @@ def merge_part_files(out_path) -> None:
     shares; a missing part raises ``FileNotFoundError`` on every process,
     the verdict being shared before anyone raises, so that no process is
     left waiting at the last barrier."""
-    n = process_count()
-    if n == 1:
+    if process_count() == 1:
         return
+    n = process_count() if count is None else count
     sync_hosts()
+    if n == 1:  # one writer wrote ``out_path`` itself
+        return
     missing = []
     if is_primary():
         missing = [f"{out_path}.part{i}" for i in range(n)

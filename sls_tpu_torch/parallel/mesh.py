@@ -43,6 +43,15 @@ class Mesh:
     groups: Dict[str, Optional[dist.ProcessGroup]]
 
 
+def axis_of(mesh: Optional[Mesh], name: str) -> Tuple[Optional[dist.ProcessGroup], int, int]:
+    """(this rank's process group, its index, the axis's size) along
+    ``name``: (None, 0, 1) with no mesh, an axis the mesh lacks or one of
+    size 1, whose collectives are the identity."""
+    if mesh is None or mesh.shape.get(name, 1) == 1 or mesh.coords is None:
+        return None, 0, 1
+    return mesh.groups[name], mesh.coords[name], mesh.shape[name]
+
+
 def make_mesh(axis_names: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = None,
               ranks: Optional[Sequence[int]] = None) -> Mesh:
     """Build a mesh over all (or the given) ranks of the job.

@@ -20,7 +20,12 @@ masks held constant.
 
 Under sequence parallelism (``parallel/sequence.py``) the per-timestep
 variant works on any rank's frames as they are (``row_parallel``); the
-window variants reduce over frames and need them whole.
+window variants reduce over frames and need them whole.  Under tensor
+parallelism (``tp`` set, ``parallel/tensor.py``; ``use_pallas`` off)
+``W_enc`` / ``b_enc`` hold this rank's dictionary columns and ``W_dec``
+its rows: the encode runs on them, the pre-activations are gathered
+whole over the mesh's 'model' axis for the TopK rule, and the decode
+runs on this rank's columns of the codes, its partial sums all-reduced.
 
 JumpReLU-style inference: ``encode_threshold`` keeps the activations
 above a threshold instead of the top k; ``calibrate_threshold`` picks a
@@ -41,12 +46,16 @@ from torch import nn
 
 from sls_tpu_torch.config import SAEConfig
 from sls_tpu_torch.kernels import sae_kernels as sk
+from sls_tpu_torch.parallel.tensor import copy_to_model, cut_to_model, gather_from_model, \
+    reduce_from_model
 from sls_tpu_torch.sae.sparsify import topk_per_row, window_topk_hard, window_topk_overlap
 
 VARIANTS = ("per_timestep", "window_overlap", "window_hard")
 
 
 class TopKSAE(nn.Module):
+    tp = None  # a parallel/tensor.py ModelShard when the dictionary is cut
+
     def __init__(self, config: SAEConfig, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None):
         super().__init__()
@@ -78,6 +87,9 @@ class TopKSAE(nn.Module):
 
     def pre_activations(self, x: torch.Tensor) -> torch.Tensor:
         """ReLU encoder activations before sparsification.  x: [..., D]."""
+        if self.tp is not None:
+            h = copy_to_model(x - self.b_dec, self.tp).to(self.dtype) @ self.W_enc.to(self.dtype)
+            return gather_from_model(torch.relu(h.float() + self.b_enc), self.tp)
         if self.config.use_pallas:
             flat = x.reshape(-1, x.shape[-1])
             out = sk.sae_encode_relu(flat, self.W_enc, self.b_enc, self.b_dec)
@@ -103,6 +115,8 @@ class TopKSAE(nn.Module):
         """Sparse codes for x ([B, T, D] or [N, D]; window variants need
         the 3-D form) -> [..., M]."""
         cfg = self.config
+        if self.tp is not None:  # the kernels need the whole dictionary
+            return self.sparsify(self.pre_activations(x))
         if cfg.use_pallas and cfg.variant == "per_timestep":
             flat = x.reshape(-1, x.shape[-1])
             out = sk.sae_encode_topk(flat, self.W_enc, self.b_enc, self.b_dec, cfg.k)
@@ -119,6 +133,10 @@ class TopKSAE(nn.Module):
         return acts * (acts > threshold).to(acts.dtype)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            dt = self.dtype
+            part = cut_to_model(codes, self.tp).to(dt).float() @ self.W_dec.to(dt).float()
+            return reduce_from_model(part, self.tp).to(dt).float() + self.b_dec
         if self.config.use_pallas:
             flat = codes.reshape(-1, codes.shape[-1])
             out = sk.sae_decode(flat, self.W_dec, self.b_dec)
@@ -132,9 +150,16 @@ class TopKSAE(nn.Module):
         return self.decode(codes), codes
 
 
-def reconstruction_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean-squared reconstruction error."""
-    return torch.mean(torch.square(recon.float() - target.float()))
+def reconstruction_loss(recon: torch.Tensor, target: torch.Tensor,
+                        group_ranks: int = 1) -> torch.Tensor:
+    """Mean-squared reconstruction error.  With ``group_ranks`` > 1 (a
+    data-parallel step whose ranks hold equal batches) this rank's share
+    of the global mean: its sum of squares over the global element
+    count; the shares sum to the mean over the concatenated batch."""
+    sq = torch.square(recon.float() - target.float())
+    if group_ranks == 1:
+        return torch.mean(sq)
+    return sq.sum() / (sq.numel() * group_ranks)
 
 
 def _quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:

@@ -11,16 +11,22 @@ is what the int8 route is for.  ``build_scorer_from_params`` takes a
 config and a state dict instead.  Either family is served: a state with
 ``sls_head.`` entries is an ``SLSDetector``, any other a ``Detector``.
 
-Not ported yet: data-parallel serving over several cards (the
-reference's ``mesh`` argument, and with it ``cli/serve.py --dp``;
-ROADMAP M5).
+Data-parallel serving (``devices``, the counterpart of the reference's
+``mesh``): one replica of the model on each device; every engine batch
+is cut into equal row blocks, one a replica (a shape the devices do not
+divide raises ``ValueError``, as the reference's), each block enqueued
+from a host thread of its own, since one batch's host enqueue (~31-33
+ms at the flagship on an H100) would otherwise serialise the replicas,
+and the log-probs concatenated in row order on the first replica's
+device.  ``cli/serve.py --dp N`` serves on ``cuda:0 .. N-1``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,15 +96,58 @@ def _forward(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
     return score_fn
 
 
+def _replicated_forward(cfg: ExperimentConfig, state_dict: Mapping[str, torch.Tensor],
+                        devs: Sequence[torch.device]) -> Callable:
+    """``_forward`` over one replica a device (module docstring)."""
+    if len(devs) == 1:
+        return _forward(cfg, state_dict, devs[0])
+    # a card named without its index is the current one (set_device needs it)
+    devs = [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
+    replicas = [_forward(cfg, state_dict, d) for d in devs]
+    pool = ThreadPoolExecutor(len(devs), thread_name_prefix="replica")
+
+    def run(i: int, block) -> torch.Tensor:
+        if devs[i].type == "cuda":
+            torch.cuda.set_device(devs[i])  # the kernels launch on the current card
+        return replicas[i](block)
+
+    def score_fn(wav) -> torch.Tensor:
+        wav = np.asarray(wav)
+        if wav.shape[0] % len(devs):
+            raise ValueError(f"batch shape {wav.shape[0]} must be divisible by the "
+                             f"{len(devs)} serving devices for dp serving")
+        blocks = np.split(wav, len(devs))
+        outs = [f.result() for f in [pool.submit(run, i, b) for i, b in enumerate(blocks)]]
+        return torch.cat([o.to(devs[0]) for o in outs])
+
+    return score_fn
+
+
 def build_scorer(run_dir, checkpoint=None, *, int8: Optional[bool] = None,
                  wire_dtype: str = "float32", batch_size: int = 36, warmup: bool = True,
-                 bucket_sizes: Optional[tuple] = None, device: DeviceLike = "cuda"
+                 bucket_sizes: Optional[tuple] = None, device: DeviceLike = "cuda",
+                 devices: Optional[Sequence[DeviceLike]] = None
                  ) -> Tuple[ExperimentConfig, Callable, int]:
     """(cfg, score_fn, cut) of a run directory, ready for BatchingEngine
-    (``build_scorer_from_params`` on its config and weights)."""
+    (``build_scorer_from_params`` on its config and weights).
+    ``devices``: data-parallel serving, one replica each (module
+    docstring); else one replica on ``device``."""
+    _check_shapes(batch_size, bucket_sizes, devices)
     cfg, params = load_serving_parts(run_dir, checkpoint, int8=int8)
     return build_scorer_from_params(cfg, params, batch_size, wire_dtype, device,
-                                    bucket_sizes=bucket_sizes, warmup=warmup)
+                                    bucket_sizes=bucket_sizes, warmup=warmup, devices=devices)
+
+
+def _check_shapes(batch_size: int, bucket_sizes, devices) -> None:
+    """The reference's refusal: every batch shape must divide over the
+    serving devices."""
+    if devices is None:
+        return
+    for s in tuple(sorted(set(bucket_sizes or ()))) + (batch_size,):
+        if s % len(devices):
+            raise ValueError(f"batch shape {s} must be divisible by the {len(devices)} "
+                             "serving devices for dp serving")
 
 
 def build_scorer_from_params(
@@ -110,6 +159,7 @@ def build_scorer_from_params(
     *,
     bucket_sizes: Optional[tuple] = None,
     warmup: bool = True,
+    devices: Optional[Sequence[DeviceLike]] = None,
 ) -> Tuple[ExperimentConfig, Callable, int]:
     """(cfg, score_fn, cut) ready for BatchingEngine.
 
@@ -117,10 +167,13 @@ def build_scorer_from_params(
     device, through ``Detector.score`` (no decode) or
     ``SLSDetector.score``.  ``warmup`` runs one throwaway batch per shape
     (``bucket_sizes`` and ``batch_size``), so the first request does not
-    pay for one-time setup (kernel build, library handles)."""
+    pay for one-time setup (kernel build, library handles).  ``devices``:
+    one replica on each, every batch cut over them (module docstring)."""
     if wire_dtype not in WIRE_NUMPY:
         raise ValueError(f"unknown wire_dtype: {wire_dtype!r}")
-    score_fn = _forward(cfg, state_dict, resolve_device(device))
+    _check_shapes(batch_size, bucket_sizes, devices)
+    devs = [resolve_device(d) for d in (devices if devices is not None else [device])]
+    score_fn = _replicated_forward(cfg, state_dict, devs)
     cut = cfg.train.cut_length
     if warmup:
         for s in tuple(sorted(set(bucket_sizes or ()))) + (batch_size,):

@@ -33,14 +33,32 @@ step's loss by 0, which keeps a NaN, so one non-finite batch turns the
 epoch's mean loss into NaN; here the fold selects, and the batch is
 left out as the reference's docstring intends.
 
-Data-parallel training is not ported (ROADMAP M5): a train epoch in a
-multi-process job raises.  Validation and scoring already combine the
-processes' shards as the reference does.
+Across processes (a torchrun or ``SLS_TPU_*`` job,
+``parallel/distributed.py::initialize``) the trainer trains data
+parallel over a 'data' mesh of every rank, as the reference trains on a
+data mesh of every chip: each rank steps its own rows of the global
+batch (its loader's ``host_shard``, equal row and batch counts on every
+rank) through the global-batch step of ``train/steps.py``.
+``init_state`` broadcasts rank 0's weights and checks them by checksum
+on every rank, ``resume`` reads the same file on every rank (storage all
+ranks share, as the reference requires) and checks the same; the
+epoch's figures and validation combine the ranks as the reference's
+``_combine_epoch`` does, so every rank reports the same ones;
+checkpoints, the CSV and TensorBoard stay the primary's.  Under NCCL the
+loop adds no host wait per step; under gloo (ranks sharing a card) the
+backend stages the step's CUDA gradient through host memory, which
+waits for the backward.  With ``model_parallel = M`` > 1 the job's ranks
+(M must divide them; one host, ``parallel/tensor.py``) form a ('data',
+'model') mesh: ``init_state`` cuts the model over 'model', the ranks of
+one data coordinate step the same rows (``data_shard`` says which shard
+a rank's loaders take), and checkpoints hold whole tensors, gathered
+for the primary.
 """
 
 from __future__ import annotations
 
 import csv
+import os
 import re
 import time
 from dataclasses import dataclass
@@ -58,6 +76,17 @@ from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.metrics.eer import roc_eer
 from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.parallel import distributed as dist
+from sls_tpu_torch.parallel.mesh import axis_of, make_mesh
+from sls_tpu_torch.parallel.sequence import weights_checksum
+from sls_tpu_torch.parallel.tensor import (
+    cut_state_dict,
+    gather_train_tree,
+    model_shard,
+    shard_model_,
+    shard_train_tree,
+    state_shardings,
+    tp_mesh_and_config,
+)
 from sls_tpu_torch.scores.writer import ScoreWriter, log_probs_to_scores
 from sls_tpu_torch.train import profiling
 from sls_tpu_torch.train.loss import weighted_nll
@@ -136,13 +165,18 @@ def epoch_row(epoch: int, tr: EpochMetrics, va: EpochMetrics, seconds: float) ->
     }
 
 
-def _gathered_eer(scores_all: List[np.ndarray], labels_all: List[np.ndarray]) -> float:
-    """EER over every process's score and label rows (one ragged gather;
-    the identity in one process); 50 % for an empty epoch."""
+def _gathered_eer(scores_all: List[np.ndarray], labels_all: List[np.ndarray],
+                  group=None, gather: bool = True) -> float:
+    """EER over the score and label rows of every process of ``group``
+    (default all; one ragged gather, the identity in one process), or
+    over this process's alone without ``gather``; 50 % for an empty
+    epoch."""
     scores = np.concatenate(scores_all) if scores_all else np.zeros(0)
     labels = np.concatenate(labels_all) if labels_all else np.zeros(0, np.int64)
-    scores_g = dist.allgather_ragged_rows(scores.astype(np.float32))
-    labels_g = dist.allgather_ragged_rows(labels.astype(np.int32))
+    scores_g, labels_g = scores.astype(np.float32), labels.astype(np.int32)
+    if gather:
+        scores_g = dist.allgather_ragged_rows(scores_g, group)
+        labels_g = dist.allgather_ragged_rows(labels_g, group)
     return 50.0 if scores_g.size == 0 else float(roc_eer(scores_g, labels_g))
 
 
@@ -178,9 +212,15 @@ class BaseTrainer:
         # profile_steps > 0: a torch.profiler trace of that many steps
         # from the second step of the first trained epoch, in run_dir/profile
         # (train/profiling.py: op_histogram reads it)
+        self._refuse(cfg)
+        self.mesh = None
         if cfg.train.model_parallel > 1:
-            raise ValueError("model_parallel > 1: tensor-parallel training is not ported yet "
-                             "(ROADMAP M5)")
+            self.mesh, cfg = tp_mesh_and_config(cfg)
+        elif dist.process_count() > 1:
+            self.mesh = make_mesh(("data",))
+        self.tp = model_shard(self.mesh)
+        self.data_group, self.data_index, self.data_ranks = axis_of(self.mesh, "data")
+        self.tp_specs = None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.run_dir = Path(run_dir)
@@ -207,6 +247,9 @@ class BaseTrainer:
         self._nonfinite_batches = 0
 
     # -- subclass surface ----------------------------------------------------
+
+    def _refuse(self, cfg: ExperimentConfig) -> None:
+        """Raise for a configuration the family does not train."""
 
     def _build_model_and_steps(self) -> None:
         raise TypeError("use Trainer, not BaseTrainer")
@@ -235,10 +278,84 @@ class BaseTrainer:
         elif m:
             self.start_epoch = int(m.group(1)) + 1
 
+    # -- ranks ----------------------------------------------------------------
+
+    def data_shard(self) -> tuple:
+        """(index, count) of the data shard this rank's loaders take: its
+        data coordinate and the mesh's data ranks ((0, 1) in one
+        process).  The ranks of one data coordinate of a tensor-parallel
+        mesh take the same shard."""
+        return self.data_index, self.data_ranks
+
+    def _sum_ranks(self, values) -> np.ndarray:
+        """Host scalars summed over the data ranks (the ranks of one data
+        coordinate hold the same rows and are counted once)."""
+        if self.data_ranks == 1:
+            return np.asarray(values, np.float64)
+        return dist.allreduce_sum_scalars(values, self.data_group)
+
+    def _eer(self, scores_all, labels_all) -> float:
+        """EER over the data ranks' rows (``_sum_ranks``'s ranks)."""
+        return _gathered_eer(scores_all, labels_all, self.data_group,
+                             gather=self.data_ranks > 1)
+
+    def _check_replicas(self, what: str, group=None) -> None:
+        """Raise unless every rank of ``group`` (default: this rank's data
+        group, the ranks that hold its weights) holds them, by
+        ``weights_checksum``."""
+        if group is None:
+            if self.data_ranks == 1:
+                return
+            group = self.data_group
+        sums = dist.allgather_rows(weights_checksum(self.model)[None, :], group)
+        if not np.all(sums == sums[0]):
+            raise ValueError(f"{what}: the ranks hold different weights: checksums "
+                             f"{sums.tolist()}")
+
+    @torch.no_grad()
+    def _replicate_weights(self) -> None:
+        """Rank 0's weights (and buffers) on every rank of the job, checked
+        by checksum: the reference's ``replicate`` requires equal host
+        values.  No-op in one process."""
+        if dist.process_count() == 1:
+            return
+        tensors = list(self.model.state_dict().values())
+        for dtype in {t.dtype for t in tensors}:  # one broadcast a dtype, not a tensor
+            same = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            torch.distributed.broadcast(flat, src=0)
+            for t, piece in zip(same, flat.split([t.numel() for t in same])):
+                t.copy_(piece.view_as(t))
+            del flat
+        self._check_replicas("init_state", group=torch.distributed.group.WORLD)
+
+    def _load_model_state(self, state) -> None:
+        """Load a whole model's state dict into ``self.model`` (this
+        rank's blocks of it under tensor parallelism) and check the
+        ranks agree."""
+        if self.tp is not None:
+            state = cut_state_dict(state, self.tp_specs, self.tp)
+        self.model.load_state_dict(state, strict=True)
+        self._check_replicas("resume")
+
+    def _checkpoint_tree(self) -> Dict:
+        """``_state_tree`` with whole tensors; every rank must call it
+        (under tensor parallelism it gathers over 'model')."""
+        tree = self._state_tree()
+        if self.tp is not None:
+            tree = gather_train_tree(tree, self.tp_specs, self.tp)
+        return tree
+
     # -- state management ----------------------------------------------------
 
     def init_state(self) -> None:
-        """Zero optimizer state over the model's current weights."""
+        """Zero optimizer state over the model's current weights: in a
+        job, rank 0's, broadcast; under tensor parallelism cut over
+        'model' first."""
+        self._replicate_weights()
+        if self.tp is not None and self.tp_specs is None:
+            self.tp_specs = state_shardings(self.model, self.mesh)["params"]
+            shard_model_(self.model, self.tp_specs, self.tp)
         self.state = self._create_state()
 
     def resume(self, explicit_path=None, fresh_start: bool = False) -> bool:
@@ -260,17 +377,20 @@ class BaseTrainer:
         tree = ckpt["state"]
         if is_reference_state(tree):
             tree = train_state_tree_from_reference(tree, self.state.names)
+        if self.tp is not None:
+            tree = shard_train_tree(tree, self.tp_specs, self.tp)
         self._restore_state(tree)
+        self._check_replicas("resume")
         self.start_epoch = ckpt["meta"]["epoch"] + 1
         return True
 
     # -- epochs ----------------------------------------------------------------
 
     def _aug_generator(self, epoch: int, b_idx: int) -> torch.Generator:
-        """RawBoost's generator for a batch, from (seed, process, epoch,
-        batch): processes draw differently for their shards, and a
-        resumed run draws as an uninterrupted one."""
-        key = (self.cfg.train.seed, dist.process_index(), epoch, b_idx)
+        """RawBoost's generator for a batch, from (seed, data shard, epoch,
+        batch): shards draw differently, the ranks of one shard alike, and
+        a resumed run draws as an uninterrupted one."""
+        key = (self.cfg.train.seed, self.data_index, epoch, b_idx)
         seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -279,9 +399,6 @@ class BaseTrainer:
         docstring); the one fetch is in ``_finish_epoch``."""
         if self.state is None:
             raise RuntimeError("call init_state() (and resume()) first")
-        if dist.process_count() > 1:
-            raise ValueError("training across processes needs the gradient all-reduce, "
-                             "which is not ported yet (ROADMAP M5)")
         aug = self.cfg.train.rawboost
         dev = self.device
         # per process: sums of loss, cls, sae and cpc weighted by the
@@ -295,12 +412,13 @@ class BaseTrainer:
         for b_idx, batch in enumerate(loader.epoch(epoch)):
             if self.profile_steps and not self._profiled and b_idx == 1:
                 prof = self._start_profile()
-            wav = to_device(batch.wav, dev)
+            (wav, labels, valid), _ = dist.global_batch(
+                (batch.wav, batch.labels, batch.valid), self.mesh, device=dev)
             if aug.algo in range(1, 9):
                 wav = rawboost_batch(self._aug_generator(epoch, b_idx), dequantize_wire(wav),
                                      aug, device=dev)
-            self.state, m = self.train_step(self.state, wav, to_device(batch.labels, dev),
-                                            to_device(batch.valid, dev), self.cfg.train.seed)
+            self.state, m = self.train_step(self.state, wav, labels, valid,
+                                            self.cfg.train.seed)
             n = float(batch.valid.sum())
             fold = torch.stack([m["loss"] * n, m["cls_loss"] * n, m["sae_loss"] * n,
                                 m["cpc_loss"] * n, m["correct"].float(),
@@ -323,7 +441,9 @@ class BaseTrainer:
                       finite: List[torch.Tensor], meta) -> EpochMetrics:
         """The epoch's one device -> host fetch (accumulator, flags and
         score rows in one copy), the non-finite report, and the
-        cross-process combination."""
+        combination over the data ranks (the reference's
+        ``_combine_epoch``: its ``correct`` is the global batch's, here
+        each rank's, summed with the rest)."""
         parts = [acc]
         if finite:
             parts += [torch.stack(finite).float(), torch.cat(scores).float()]
@@ -341,13 +461,13 @@ class BaseTrainer:
                 continue
             scores_all.append(s[valid])
             labels_all.append(labels[valid])
-        loss_s, cls_s, sae_s, cpc_s, n_g = dist.allreduce_sum_scalars(
-            [sums[0], sums[1], sums[2], sums[3], sums[5]])
+        loss_s, cls_s, sae_s, cpc_s, correct, n_g = self._sum_ranks(
+            [sums[0], sums[1], sums[2], sums[3], sums[4], sums[5]])
         n = max(float(n_g), 1.0)
         return EpochMetrics(loss=float(loss_s) / n, cls_loss=float(cls_s) / n,
                             sae_loss=float(sae_s) / n, cpc_loss=float(cpc_s) / n,
-                            acc=100.0 * float(sums[4]) / n,
-                            eer=_gathered_eer(scores_all, labels_all))
+                            acc=100.0 * float(correct) / n,
+                            eer=self._eer(scores_all, labels_all))
 
     def _start_profile(self) -> profiling.Trace:
         return profiling.Trace(self.run_dir / "profile").start()
@@ -399,13 +519,13 @@ class BaseTrainer:
         for item in pending:
             take(item)
 
-        # each process validated its own shard: combine once per epoch
-        loss_sum, sae_sum, correct, n_seen = dist.allreduce_sum_scalars(
+        # each data shard was validated on its own: combine once per epoch
+        loss_sum, sae_sum, correct, n_seen = self._sum_ranks(
             [loss_sum, sae_sum, correct, n_seen])
         n = max(float(n_seen), 1.0)
         return EpochMetrics(loss=float(loss_sum) / n, sae_loss=float(sae_sum) / n,
                             acc=100.0 * float(correct) / n,
-                            eer=_gathered_eer(scores_all, labels_all))
+                            eer=self._eer(scores_all, labels_all))
 
     def fit(self, train_loader, val_loader, num_epochs: Optional[int] = None) -> None:
         """Train from ``start_epoch`` to ``num_epochs`` (default the
@@ -427,11 +547,12 @@ class BaseTrainer:
                                    ("val/loss", va.loss), ("val/eer", va.eer),
                                    ("val/acc", va.acc)]:
                     self.tb.add_scalar(key, value, epoch)
+            tree = self._checkpoint_tree()  # every rank: a gather under TP
             if self.io_primary:
                 # the host copy is made before this returns; the write
                 # overlaps the next epoch
                 improved = self.ckpt.save_epoch(
-                    self._state_tree(), epoch,
+                    tree, epoch,
                     {"val_eer": va.eer, "val_loss": va.loss, "val_acc": va.acc}, block=False)
                 marker = " *best*" if improved else ""
                 print(f"{self.log_prefix}epoch {epoch}: train_loss={tr.loss:.4f} "
@@ -447,7 +568,11 @@ class BaseTrainer:
         function ``produce_scores`` on this trainer's eval step)."""
         if self.state is None:
             raise RuntimeError("call init_state() (and resume()) first")
-        return produce_scores(self._run_eval, loader, out_path)
+        if self.tp is None:
+            return produce_scores(self._run_eval, loader, out_path)
+        # one writer a data shard: its 'model' rank 0
+        return produce_scores(self._run_eval, loader, out_path,
+                              part=(self.data_index, self.data_ranks, self.tp.index == 0))
 
 
 class Trainer(BaseTrainer):
@@ -458,7 +583,8 @@ class Trainer(BaseTrainer):
     def _build_model_and_steps(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.train.seed)
         self.model = Detector(self.cfg.model, device=self.device, generator=gen)
-        self.train_step = make_train_step(self.model, self.cfg, device=self.device)
+        self.train_step = make_train_step(self.model, self.cfg, device=self.device,
+                                          mesh=self.mesh)
         self.eval_step = make_eval_step(self.model, device=self.device)
 
     def _create_state(self):
@@ -481,13 +607,13 @@ class Trainer(BaseTrainer):
             raise RuntimeError("call init_state() before resume()")
         raw = torch.load(path, map_location="cpu", weights_only=True)
         state = raw.get("model", raw) if isinstance(raw, dict) else raw
-        self.model.load_state_dict(detector_state_from_reference(state, self.cfg.model),
-                                   strict=True)
+        self._load_model_state(detector_state_from_reference(state, self.cfg.model))
         self._torch_epoch_from(raw, path)
         return True
 
 
-def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> int:
+def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path],
+                   part: Optional[tuple] = None) -> int:
     """Write the ``utt score`` file for every valid row the loader yields;
     returns the number of lines written.
 
@@ -495,12 +621,16 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> i
     (``ArrayLoader.host_shard``) on its own device and writes a part
     file; the primary concatenates the parts in process order, and every
     process returns the global count.  Every process must make the call.
+    ``part`` = (index, count, writes) names this process's part and the
+    number of parts when they are not one a process (tensor parallelism:
+    one a data shard, written by one of the ranks that score it).
 
     Depth-2 pipeline: batch N is fetched from the device (and written)
     only after batches N+1 and N+2 are queued, so host batching, device
     compute and score writing overlap."""
+    index, count, writes = part if part is not None else (None, None, True)
     n = 0
-    with ScoreWriter(dist.part_path(out_path)) as writer:
+    with ScoreWriter(dist.part_path(out_path, index, count) if writes else os.devnull) as writer:
         pending = []
 
         def flush(item) -> None:
@@ -508,7 +638,7 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> i
             utt_ids, valid, out = item
             score = log_probs_to_scores(out["log_probs"])  # waits for the device
             writer.write_batch([u for u, ok in zip(utt_ids, valid) if ok], score[valid])
-            n += int(valid.sum())
+            n += int(valid.sum()) if writes else 0
 
         for batch in loader.epoch(0):
             out = eval_step(batch.wav)
@@ -517,5 +647,5 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path]) -> i
                 flush(pending.pop(0))
         for item in pending:
             flush(item)
-    dist.merge_part_files(out_path)
+    dist.merge_part_files(out_path, count)
     return int(dist.allreduce_sum_scalars([float(n)])[0])

@@ -18,6 +18,26 @@ so a rejected step is retried with the same masks; the port counts the
 host's calls (``TrainState.calls``) instead, since reading the device's
 count would stall the step.  The two random streams differ anyway, and
 a resumed run that restores ``calls`` draws the same masks.
+
+Data parallelism (``make_train_step(..., mesh=...)`` with a 'data' axis
+of more than one rank): the step computes the loss of the global batch,
+the ranks' rows concatenated in rank order, as the reference's step on
+its data mesh does.  Each rank computes its share of each loss term
+(``train/loss.py``, ``sae/topk.py``, ``sae/cpc.py``), so that the shares
+sum to the reference's value and their gradients sum to the global
+gradient; one SUM all-reduce over the 'data' group then runs on the flat
+gradient that the optimizer builds anyway, with the four loss terms
+riding at its end (one collective a step, ~1.27 GB of fp32 at the
+flagship).  The guard reads the all-reduced loss, so every rank commits
+or rejects the step alike, and the state stays equal on every rank.
+The layerdrop draws come from a generator seeded alike on every rank,
+from (base seed, call), as the reference's one draw for the global
+batch; dropout masks from one that also folds in the rank's data
+coordinate.  ``loss``, ``cls_loss``, ``sae_loss`` and ``cpc_loss`` come
+back global, ``scores`` and ``correct`` this rank's.  Under tensor
+parallelism the mesh's 'model' ranks hold the same rows and compute the
+same loss: the all-reduce runs over 'data' alone.  In a one-rank job
+every draw and every number is what it was without a mesh.
 """
 
 from __future__ import annotations
@@ -29,9 +49,13 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from sls_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.models.detector import Detector, total_loss
+from sls_tpu_torch.parallel.distributed import to_device
+from sls_tpu_torch.parallel.mesh import Mesh, axis_of
 from sls_tpu_torch.train.loss import weighted_nll
 
 _LN256 = 5.545177444479562  # log(256), mu=255 companding
@@ -50,16 +74,6 @@ def dequantize_wire(wav: torch.Tensor) -> torch.Tensor:
     if wav.dtype != torch.float32:
         raise TypeError(f"unknown wire dtype {wav.dtype}")
     return wav
-
-
-def to_device(x, dev: torch.device) -> torch.Tensor:
-    """``x`` (numpy or tensor) on ``dev``, without waiting for the device:
-    a host array bound for a card goes up from pinned memory (a pageable
-    copy would wait)."""
-    t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
-    if dev.type == "cuda" and t.device.type == "cpu":
-        t = t.pin_memory()
-    return t.to(dev, non_blocking=True)
 
 
 # -- optimizer -------------------------------------------------------------------
@@ -114,11 +128,29 @@ class AdamL2:
         committed where the 0-d bool ``finite`` holds and else a no-op,
         bit for bit.  Works on flat buffers: a few passes over all the
         parameters, and one multi-tensor add into them."""
+        self.update(state, self.flat_grad(state), finite)
+
+    @staticmethod
+    @torch.no_grad()
+    def flat_grad(state: TrainState, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The parameters' ``.grad`` (zero where there is none) as one flat
+        fp32 buffer in ``state.names`` order, consumed; ``extra`` (a few
+        values) rides at its end, so one collective carries both."""
         params = state.params
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for p in params])
+        parts = [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                 for p in params]
+        if extra is not None:
+            parts.append(extra.reshape(-1).float())
+        g = torch.cat(parts)
         for p in params:
             p.grad = None
+        return g
+
+    @torch.no_grad()
+    def update(self, state: TrainState, g: torch.Tensor, finite: torch.Tensor) -> None:
+        """``apply`` on the flat gradient ``g`` (``flat_grad``'s, which it
+        overwrites), committed where ``finite`` holds."""
+        params = state.params
         if self.weight_decay:
             g.add_(torch.cat([p.reshape(-1) for p in params]), alpha=self.weight_decay)
         count = state.step + 1
@@ -251,61 +283,100 @@ def create_train_state(model: Detector, cfg: ExperimentConfig) -> TrainState:
 # -- steps -----------------------------------------------------------------------
 
 
-def dropout_generator(base_seed: int, call: int, device: DeviceLike) -> torch.Generator:
+def dropout_generator(base_seed: int, call: int, device: DeviceLike,
+                      rank: Optional[int] = None) -> torch.Generator:
     """The generator of call ``call``'s dropout masks: seeded from
     (``base_seed``, ``call``) on the host, so a resumed run draws the same
-    masks."""
-    seed = int(np.random.SeedSequence((base_seed, call)).generate_state(1, np.uint64)[0])
+    masks; with ``rank`` (a data-parallel rank's data coordinate) from
+    (``base_seed``, ``call``, ``rank``)."""
+    key = (base_seed, call) if rank is None else (base_seed, call, rank)
+    seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def step_generators(base_seed: int, call: int, device: DeviceLike, mesh: Optional[Mesh]
+                    ) -> Tuple[torch.Generator, Optional[torch.Generator]]:
+    """(the dropout generator, the layerdrop generator) of one call: one
+    generator for both (None for the second) without a data axis, else
+    the rank's own for dropout and one alike on every rank for layerdrop
+    (module docstring)."""
+    _, index, ranks = axis_of(mesh, "data")
+    if ranks == 1:
+        return dropout_generator(base_seed, call, device), None
+    return (dropout_generator(base_seed, call, device, index),
+            dropout_generator(base_seed, call, device))
+
+
+def global_terms(state: TrainState, terms: torch.Tensor, mesh: Optional[Mesh]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the flat gradient, the loss terms) summed over the mesh's 'data'
+    group in one all-reduce (module docstring); this rank's own without
+    a data axis.  Consumes the parameters' ``.grad``."""
+    group, _, ranks = axis_of(mesh, "data")
+    if ranks == 1:
+        return AdamL2.flat_grad(state), terms
+    buf = AdamL2.flat_grad(state, terms.detach())
+    dist.all_reduce(buf, group=group)
+    n = buf.numel() - terms.numel()
+    return buf[:n], buf[n:]
 
 
 def train_loss(model: Detector, tcfg: TrainConfig, wav: torch.Tensor, labels: torch.Tensor,
                valid: torch.Tensor, generator: torch.Generator,
-               class_weights: Optional[torch.Tensor] = None
+               class_weights: Optional[torch.Tensor] = None, data_group=None,
+               layerdrop_generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, cls_loss, the model's outputs) of the training forward on
     float audio ``wav``: weighted NLL at ``tcfg.loss_weights`` (or
     ``class_weights``, the same on the device) over the ``valid`` rows,
     plus ``tcfg.sae_weight`` times the SAE loss, plus with ``use_cpc``
-    ``tcfg.cpc_weight`` times the CPC loss."""
+    ``tcfg.cpc_weight`` times the CPC loss.  With ``data_group``, this
+    rank's shares of them (module docstring)."""
     compute_cpc = model.config.use_cpc
-    out = model(wav, train=True, generator=generator, compute_cpc=compute_cpc)
+    out = model(wav, train=True, generator=generator, compute_cpc=compute_cpc,
+                data_group=data_group, layerdrop_generator=layerdrop_generator)
     weights = tcfg.loss_weights if class_weights is None else class_weights
-    cls = weighted_nll(out["log_probs"], labels, weights, valid)
+    cls = weighted_nll(out["log_probs"], labels, weights, valid, group=data_group)
     loss = total_loss(cls, out["sae_loss"], tcfg.sae_weight, out["cpc_loss"],
                       tcfg.cpc_weight if compute_cpc else 0.0)
     return loss, cls, out
 
 
 def make_train_step(model: Detector, cfg: ExperimentConfig,
-                    device: DeviceLike = "cuda") -> Callable:
+                    device: DeviceLike = "cuda", mesh: Optional[Mesh] = None) -> Callable:
     """step(state, wav [B, S] on the wire, labels [B], valid [B],
     base_seed) -> (state, metrics).  One forward with ``train=True``,
     backward and guarded Adam update (module docstring); ``state`` is
     updated in place and returned.  ``metrics`` holds loss, cls_loss,
     sae_loss, cpc_loss (0 without ``use_cpc``), scores [B], correct (the
     valid rows the argmax gets right) and finite, all on the device.  Inputs already on
-    the device are used as they are."""
+    the device are used as they are.  ``mesh`` (every rank of its 'data'
+    axis calls the step with its own rows, all the same number) makes it
+    the global batch's step (module docstring); None is one rank's."""
     dev = resolve_device(device)
     tcfg = cfg.train
     opt = make_optimizer(tcfg.lr, tcfg.weight_decay)
     class_weights = torch.tensor(tcfg.loss_weights, dtype=torch.float32, device=dev)
+    data_group = axis_of(mesh, "data")[0]
 
     def step(state: TrainState, wav, labels, valid, base_seed: int):
         w = dequantize_wire(to_device(wav, dev))
         y, ok = to_device(labels, dev).long(), to_device(valid, dev).float()
-        gen = dropout_generator(base_seed, state.calls, dev)
+        gen, ld_gen = step_generators(base_seed, state.calls, dev, mesh)
         state.calls += 1
         model.zero_grad(set_to_none=True)
-        loss, cls, out = train_loss(model, tcfg, w, y, ok, gen, class_weights)
+        loss, cls, out = train_loss(model, tcfg, w, y, ok, gen, class_weights, data_group,
+                                    ld_gen)
         loss.backward()
-        finite = torch.isfinite(loss)
-        opt.apply(state, finite)
+        g, terms = global_terms(state, torch.stack(
+            [loss, cls, out["sae_loss"], out["cpc_loss"]]).detach(), mesh)
+        finite = torch.isfinite(terms[0])
+        opt.update(state, g, finite)
         metrics = {
-            "loss": loss.detach(),
-            "cls_loss": cls.detach(),
-            "sae_loss": out["sae_loss"].detach(),
-            "cpc_loss": out["cpc_loss"].detach(),
+            "loss": terms[0],
+            "cls_loss": terms[1],
+            "sae_loss": terms[2],
+            "cpc_loss": terms[3],
             "scores": out["score"].detach(),
             "correct": ((out["log_probs"].detach().argmax(-1) == y) * ok).sum(),
             "finite": finite,

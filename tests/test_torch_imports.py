@@ -18,10 +18,10 @@ PORT_FILES = sorted((ROOT / "sls_tpu_torch").rglob("*.py")) + [ROOT / "chip_smok
 LONG_CLIP_MODULES = ("sls_tpu_torch.kernels.attention", "sls_tpu_torch.evaluation.overlap",
                      "sls_tpu_torch.metrics.eer", "sls_tpu_torch.analysis.temporal")
 
-# the multi-process slice's modules
+# the multi-process slices' modules (scoring; data- and tensor-parallel training)
 PARALLEL_MODULES = ("sls_tpu_torch.parallel.distributed", "sls_tpu_torch.parallel.mesh",
                     "sls_tpu_torch.parallel.sequence", "sls_tpu_torch.parallel.launch",
-                    "sls_tpu_torch.parallel.workers")
+                    "sls_tpu_torch.parallel.workers", "sls_tpu_torch.parallel.tensor")
 
 # the offline evaluation slice's modules
 OFFLINE_MODULES = ("sls_tpu_torch.data.audio", "sls_tpu_torch.data.flac",

@@ -319,11 +319,65 @@ def test_jax_and_port_servers_agree(jax_run):
 # -- cli.serve ---------------------------------------------------------------------------
 
 
-def test_cli_refusals(capsys):
+def test_cli_refusals(capsys, monkeypatch):
     assert serve_cli.main(["--from_export", "x", "--dp", "2"]) == 2
     assert serve_cli.main(["--from_export", "x", "--buckets", "2,4"]) == 2
-    assert serve_cli.main(["--run_dir", "x", "--dp", "2"]) == 2
-    assert "ROADMAP M5" in capsys.readouterr().out
+    # --dp beyond the visible cards (on the card's platform)
+    monkeypatch.delenv("SLS_TPU_PLATFORM", raising=False)
+    beyond = torch.cuda.device_count() + 1
+    assert serve_cli.main(["--run_dir", "x", "--dp", str(beyond)]) == 2
+    assert f"--dp {beyond} needs {beyond} cards" in capsys.readouterr().out
+
+
+def test_cli_dp_devices(monkeypatch):
+    monkeypatch.setenv("SLS_TPU_PLATFORM", "cpu")
+    assert serve_cli.dp_devices(2) == [torch.device("cpu")] * 2
+    monkeypatch.delenv("SLS_TPU_PLATFORM")
+    n = torch.cuda.device_count()
+    if n:
+        assert serve_cli.dp_devices(n) == [torch.device("cuda", i) for i in range(n)]
+    assert isinstance(serve_cli.dp_devices(n + 1), str)
+
+
+def test_dp_scorer_matches_the_jax_mesh_scorer(jax_run):
+    """Two replicas, each scoring its half of every batch, against the JAX
+    scorer whose batch is sharded over a 2-device data mesh."""
+    import jax
+
+    from sls_tpu.parallel.mesh import make_mesh
+
+    wire = np.random.default_rng(8).normal(0, 0.1, size=(2 * BATCH, CUT)).astype(np.float32)
+    _, jax_fn, _ = jax_build_scorer(str(jax_run), batch_size=BATCH,
+                                    mesh=make_mesh(jax.devices()[:2]), bucket_sizes=(2,))
+    _, port_fn, _ = build_scorer(jax_run, batch_size=BATCH, devices=["cpu", "cpu"],
+                                 bucket_sizes=(2,))
+    one_cfg, one_fn, _ = build_scorer(jax_run, batch_size=BATCH, device="cpu")
+    for rows in (wire[:BATCH], wire[BATCH:], wire[:2]):
+        got = port_fn(rows)
+        assert got.shape == (len(rows), 2)
+        want = np.array(jax_fn(rows))
+        np.testing.assert_allclose(log_probs_to_scores(got), log_probs_to_scores(
+            torch.from_numpy(want)), atol=SCORE_ATOL, rtol=0)
+        # each replica scores its half as one replica scores it alone
+        halves = torch.cat([one_fn(h) for h in np.split(rows, 2)])
+        assert torch.equal(got, halves)
+
+
+def test_dp_scorer_refuses_a_batch_that_does_not_divide(jax_run):
+    import jax
+
+    from sls_tpu.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="divisible"):
+        jax_build_scorer(str(jax_run), batch_size=3, mesh=make_mesh(jax.devices()[:2]))
+    with pytest.raises(ValueError, match="divisible"):
+        build_scorer(jax_run, batch_size=3, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="divisible"):
+        build_scorer(jax_run, batch_size=4, bucket_sizes=(3,), devices=["cpu", "cpu"])
+    _, port_fn, _ = build_scorer(jax_run, batch_size=BATCH, devices=["cpu", "cpu"],
+                                 warmup=False)
+    with pytest.raises(ValueError, match="divisible"):
+        port_fn(np.zeros((3, CUT), np.float32))
 
 
 def test_cli_serve_subprocess(port_run):

@@ -47,7 +47,6 @@ from sls_tpu_torch import config as tcfg
 from sls_tpu_torch.convert import detector_state_from_flax
 from sls_tpu_torch.data.pipeline import ArrayLoader, to_wire
 from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
-from sls_tpu_torch.train import loop
 from sls_tpu_torch.train.loop import CSV_FIELDS, CSVLogger, Trainer
 
 WAV_LEN = 1000  # 49 frames through the tiny conv stack
@@ -309,15 +308,20 @@ def test_trainer_runs_on_the_card_unless_asked(tmp_path):
 
 
 def test_tensor_and_data_parallel_training_raise(tmp_path, monkeypatch):
+    """What tensor-parallel training still refuses, as the reference: a
+    process that is not a job of ranks that model_parallel divides, and a
+    job across hosts.  (Data- and tensor-parallel training across ranks:
+    tests/test_torch_dp_trainer.py, tests/test_torch_tensor_parallel.py.)"""
+    from sls_tpu_torch.parallel import tensor
+
     cfg = _port_cfg()
     tp = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, model_parallel=2))
-    with pytest.raises(ValueError, match="M5"):
+    with pytest.raises(ValueError, match="must divide the job's 1 rank"):
         Trainer(tp, tmp_path, tensorboard=False, device="cpu")
-    trainer = Trainer(cfg, tmp_path, tensorboard=False, device="cpu")
-    trainer.init_state()
-    monkeypatch.setattr(loop.dist, "process_count", lambda: 2)
-    with pytest.raises(ValueError, match="M5"):
-        trainer.train_epoch(ArrayLoader(*TRAIN, batch_size=BATCH), 0)
+    monkeypatch.setattr(tensor, "process_count", lambda: 2)
+    monkeypatch.setattr(tensor, "host_count", lambda: 2)
+    with pytest.raises(ValueError, match="single-host BY DESIGN"):
+        Trainer(tp, tmp_path, tensorboard=False, device="cpu")
 
 
 def test_profile_steps_write_a_trace(tmp_path):
