@@ -206,6 +206,19 @@ Phases:
      ``/score_batch``, ``/score_long``, ``/stats``, each score within
      SERVE_TOL of the score file or ``score_full_utterance``, and
      requests/s with p50 / p99 latency at 1 and 36 clients over 10 s;
+     (g) the analysis path: ``cli.report`` over the flagship's run
+     directory with the window-overlap one to compare (``--synthetic``,
+     16 samples at batch 8, the report's defaults; figures where
+     matplotlib imports, each one checked), every section's launches
+     counted around its command (row 1 once a batch of ``encode_sae``,
+     row 2 only in ``inspect``'s and ``overlap``'s full forwards, rows 3
+     and 5 in ``compare``), its seconds and the model loads'; then
+     ``cli.analyze attribution --ablation`` at the CLI's defaults (100
+     samples, batch 16) and ``cli.analyze gates`` over a full-width SLS
+     run directory (weights only) through ``main``; ``encode_sae``'s
+     codes equal to ``forward``'s bit for bit on four utterances, and the
+     gradient attribution on the kernel's codes within ROUTE_ENVELOPE of
+     the plain version's against the SAE encode in fp32;
  19. training across ranks and serving over several devices, on the
      flagship's seeded weights at full width and depth: two ranks spawned
      once, sharing the card over gloo, run (a) the data-parallel flagship
@@ -2359,6 +2372,19 @@ EXPORT_TOL = 1e-3               # cli/export.py --verify's limit: the exported p
 SERVER_START_S = 600.0          # a server that prints no address within this fails
 
 
+# (g) the analysis path: cli.report at its defaults (16 samples, batch 8),
+# then cli.analyze attribution --ablation and gates at the CLI's
+ANALYSIS_REPORT = (16, 8)       # --num_samples, --batch_size of cli.report
+ANALYSIS_CLI = (100, 16)        # cli.analyze's defaults
+ANALYSIS_GATES = (16, 8)        # gates: one encoder forward over these rows
+ANALYSIS_UTTS = 4               # encode_sae against forward, and the attribution's envelope
+ANALYSIS_FIGURES = {"temporal": ["temporal_stability.png"],
+                    "attribution": ["decision_relevance.png"],
+                    "importance": ["feature_statistics.png"], "probe": ["acoustic_probe.png"],
+                    "failure": ["boundary_discontinuity_analysis.png",
+                                "transient_vs_persistent.png"]}
+
+
 # the CLI's progress lines: the run directory (after start-up), the
 # resumed epoch (after the model's build and the weights' load), the
 # score file (after scoring)
@@ -2913,6 +2939,15 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
             http_res[label] = h
             log(f"phase 18 (f) cli.serve {label}: {json.dumps(h)}")
         res["http"] = http_res
+
+        # (g) the analysis path: cli.report, cli.analyze attribution and gates
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["analysis"] = phase_analysis(torch, device, ref_model, cfg18, work, seed, counts,
+                                         zero_counts, want_only, launches)
+        res["analysis"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 18 (g) in {res['analysis']['seconds']:.1f} s")
     finally:
         for srv in servers:
             srv.stop()
@@ -2920,6 +2955,194 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
             os.environ.pop("SLS_TPU_PLATFORM", None)
         shutil.rmtree(work, ignore_errors=True)
     res["launches"] = launches
+    return res
+
+
+def collect_batches(num_samples: int, batch: int) -> int:
+    """Batches ``cli.analyze``'s ``_collect_codes`` runs on its synthetic
+    loader (max(num_samples, 2 * batch) rows) before it has num_samples."""
+    return -(-min(num_samples, max(num_samples, 2 * batch)) // batch)
+
+
+def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, zero_counts,
+                   want_only, launches: dict) -> dict:
+    """Phase 18 (g): the analysis path on the run directories phase 18
+    wrote (module docstring).  Adds its launches to ``launches``."""
+    import importlib.util
+
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.analysis.attribution import gradient_attribution
+    from sls_tpu_torch.ckpt.checkpoint import save_checkpoint, to_host
+    from sls_tpu_torch.cli import analyze as cli_analyze
+    from sls_tpu_torch.cli import report as cli_report
+    from sls_tpu_torch.kernels import sae_kernels as tk
+    from sls_tpu_torch.models.sls import SLSDetector
+    from sls_tpu_torch.sae.sparsify import topk_per_row
+
+    on_card = device.type == "cuda"
+    figures = importlib.util.find_spec("matplotlib") is not None
+    log("phase 18 (g): matplotlib " + ("imports: --figures runs and every figure is checked"
+                                       if figures else "is not installed: no --figures"))
+    res = {"matplotlib": figures}
+
+    # the report over the flagship's run, with the window-overlap run to
+    # compare; each section's launches counted around its command
+    n_report, b_report = ANALYSIS_REPORT
+    per_section, loads = {}, []
+    commands, load = dict(cli_analyze.COMMANDS), cli_analyze.load_experiment
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            sync(torch, device)
+            before = counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync(torch, device)
+                per_section[name] = {k: v - before[k] for k, v in counts().items()}
+        return run
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        sync(torch, device)
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    out_root = work / "deliverables"
+    argv = ["--run_dir", str(work / "flagship_run"), "--compare_run_dir",
+            str(work / "window_run"), "--synthetic", "--out", str(out_root),
+            "--num_samples", str(n_report), "--batch_size", str(b_report)]
+    cli_analyze.COMMANDS.update({n: counted(n, f) for n, f in commands.items()})
+    cli_analyze.load_experiment = timed_load
+    try:
+        sync(torch, device)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli_report.main(argv)
+        report_s = time.perf_counter() - t0
+        launches["cli_report"] = counts()
+    finally:
+        cli_analyze.COMMANDS.update(commands)
+        cli_analyze.load_experiment = load
+    analysis = work / "flagship_run" / "analysis"
+    sections = [s for s, _ in cli_report.SECTIONS] + ["compare"]
+    check(rc == 0, "cli.report exits 0: every section succeeded")
+    check(all((analysis / f"{s.replace('-', '_')}.json").exists() for s in sections),
+          "cli.report wrote every section's JSON")
+    (dest,) = out_root.glob("results_*")
+    check((dest / "RESEARCH_SUMMARY.md").exists() and (dest / "EXECUTIVE_SUMMARY.txt").exists(),
+          "the deliverable holds its summaries")
+    pngs = sorted(p.name for p in (analysis / "figures").glob("*.png"))
+    want_pngs = sorted(f for names in ANALYSIS_FIGURES.values() for f in names) if figures else []
+    check(pngs == want_pngs, f"the report's figures {pngs}, want {want_pngs}")
+    n = collect_batches(n_report, b_report)
+    encode_only = {"sae_encode_topk_fused": n}
+    want = {s: encode_only for s in sections}
+    want["inspect"] = {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}
+    want["overlap"] = {"sae_encode_topk_fused": n, "sae_decode_fused": n}
+    want["compare"] = {"sae_encode_topk_fused": n, "sae_encode_fused": n, "window_vote_fused": n}
+    if on_card:
+        for s in sections:
+            want_only(f"cli.report section {s}", per_section[s], want[s])
+        total = {k: sum(w.get(k, 0) for w in want.values()) for k in counts()}
+        want_only("cli.report", launches["cli_report"], total)
+    timings = json.loads((analysis / "timings.json").read_text())
+    res["report"] = {"seconds": report_s, "model_load_s": loads, "section_s": timings,
+                     "samples": n_report, "batch": b_report, "figures": pngs,
+                     "launches_by_section": per_section, "launches": launches["cli_report"]}
+    log(f"phase 18 (g) cli.report: {json.dumps(res['report'])}")
+
+    # cli.analyze attribution --ablation at the CLI's defaults, through main
+    n_cli, b_cli = ANALYSIS_CLI
+    out = work / "attribution.json"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_analyze.main(["attribution", "--run_dir", str(work / "flagship_run"),
+                               "--synthetic", "--ablation", "--output", str(out)])
+    sync(torch, device)
+    attr_s = time.perf_counter() - t0
+    launches["cli_analyze_attribution"] = counts()
+    attr = json.loads(out.read_text())
+    check(rc == 0 and attr["num_samples"] == n_cli and len(attr["ablation"]["features"]) == 20,
+          "cli.analyze attribution --ablation exits 0 with 20 ablated features")
+    check(all(np.isfinite(attr["ablation"]["mean_prob_drop"])), "finite ablation drops")
+    if on_card:
+        want_only("cli.analyze attribution", launches["cli_analyze_attribution"],
+                  {"sae_encode_topk_fused": collect_batches(n_cli, b_cli)})
+    res["attribution_cli"] = {
+        "seconds": attr_s, "samples": n_cli, "batch": b_cli,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        "ablation_chunk_gb": 20 * n_cli * cfg18.model.encoder.num_frames(cfg18.train.cut_length)
+        * cfg18.model.sae.dict_size * 4 / 1e9,
+        "launches": launches["cli_analyze_attribution"]}
+    log(f"phase 18 (g) cli.analyze attribution --ablation: {json.dumps(res['attribution_cli'])}")
+
+    # gates over a full-width SLS run directory: its weights alone
+    sls_exp = C.ExperimentConfig(model=C.ModelConfig(encoder=cfg18.model.encoder, use_sae=False),
+                                 train=cfg18.train)
+    sls = SLSDetector(sls_exp.model, device=device, cut_length=cfg18.train.cut_length,
+                      generator=torch.Generator(device=device).manual_seed(seed + 181))
+    save_checkpoint(work / "sls_run" / "last.ckpt", {"model": to_host(sls.state_dict())},
+                    epoch=0, config_json=C.config_to_json(sls_exp))
+    n_layers = sls_exp.model.encoder.encoder_layers
+    del sls
+    n_gates, b_gates = ANALYSIS_GATES
+    out = work / "gates.json"
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_analyze.main(["gates", "--run_dir", str(work / "sls_run"), "--synthetic",
+                               "--num_samples", str(n_gates), "--batch_size", str(b_gates),
+                               "--output", str(out)]
+                              + (["--figures", str(work / "gates_figures")] if figures else []))
+    sync(torch, device)
+    gates_s = time.perf_counter() - t0
+    launches["cli_analyze_gates"] = counts()
+    gates = json.loads(out.read_text())
+    mean = np.asarray(gates["mean_gate_per_layer"])
+    check(rc == 0 and mean.shape == (n_layers,) and bool(np.all((mean > 0) & (mean < 1))),
+          f"cli.analyze gates exits 0 with {n_layers} gates in (0, 1)")
+    check((work / "gates_figures" / "layer_gates.png").exists() == figures,
+          "gates draws layer_gates.png where matplotlib is installed")
+    if on_card:
+        want_only("cli.analyze gates", launches["cli_analyze_gates"], {})
+    res["gates_cli"] = {"seconds": gates_s, "samples": n_gates,
+                        "most_sensitive_layers": gates["most_sensitive_layers"],
+                        "launches": launches["cli_analyze_gates"]}
+    log(f"phase 18 (g) cli.analyze gates: {json.dumps(res['gates_cli'])}")
+
+    # encode_sae's codes are the forward's, bit for bit; the gradient
+    # attribution on the kernel's codes within ROUTE_ENVELOPE's form of
+    # the plain version's (the envelope: the plain route against the SAE
+    # encode in fp32, on the same encoder features)
+    wav = torch.from_numpy(synthetic_wavs(ANALYSIS_UTTS, cfg18.train.cut_length,
+                                          seed + 182)).to(device)
+    with torch.inference_mode():
+        enc = model.encode_sae(wav)
+        full = model(wav)
+        with plain_sae_kernels(tk):
+            codes_plain = model.encode_sae(wav)["codes"]
+        sae = model.sae
+        acts32 = torch.relu((enc["features"] - sae.b_dec) @ sae.W_enc + sae.b_enc)
+        codes32 = topk_per_row(acts32, cfg18.model.sae.k)
+    check(torch.equal(enc["codes"], full["codes"]) and torch.equal(enc["features"],
+                                                                     full["features"]),
+          "encode_sae's codes and features equal the forward's, bit for bit")
+    g_kernel, g_plain, g32 = (torch.from_numpy(gradient_attribution(model, c)).double()
+                              for c in (enc["codes"], codes_plain, codes32))
+    env = {"kernel_vs_fp32": rel_l2(g_kernel, g32), "plain_vs_fp32": rel_l2(g_plain, g32),
+           "kernel_vs_plain": rel_l2(g_kernel, g_plain),
+           "rows_support_differs": int(((enc["codes"] > 0) != (codes_plain > 0)).any(-1).sum())}
+    check(env["kernel_vs_fp32"] <= ROUTE_ENVELOPE[0] * env["plain_vs_fp32"]
+          and env["kernel_vs_plain"] <= ROUTE_ENVELOPE[1] * env["plain_vs_fp32"],
+          f"the attribution on the kernel's codes lies within ROUTE_ENVELOPE: {env}")
+    res["encode_sae_bit_equal_forward"] = True
+    res["attribution_envelope"] = env
+    log(f"phase 18 (g) encode_sae against forward: bit-equal; attribution {json.dumps(env)}")
     return res
 
 

@@ -179,6 +179,18 @@ class Detector(nn.Module):
         log_probs = self.classifier(cls_in, frames)
         return log_probs if shard is None else shard.gather_rows(log_probs)
 
+    def encode_sae(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """fp32 encoder features [B, T, D] and sparse SAE codes [B, T, M],
+        in eval mode, with no decode and no classifier (the analysis
+        entry point)."""
+        feats32, _, _ = self._encode(wav, None)
+        return {"features": feats32, "codes": self.sae.encode(feats32)}
+
+    def classify_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """log_probs [B, 2] of the classifier in eval mode on given codes
+        [B, T, M]: the hook gradient attribution differentiates."""
+        return self.classifier(codes)
+
 
 def total_loss(cls_loss, sae_loss, sae_weight: float, cpc_loss=None,
                cpc_weight: float = 0.0):

@@ -45,6 +45,13 @@ ENTRY_MODULES = ("sls_tpu_torch.cli.main", "sls_tpu_torch.cli.serve",
                  "sls_tpu_torch.serve.server", "sls_tpu_torch.serve.export",
                  "sls_tpu_torch.train.profiling", "sls_tpu_torch.kernels.ops")
 
+# the analysis path: the analysis modules, their command line and the report
+ANALYSIS_MODULES = ("sls_tpu_torch.analysis.temporal", "sls_tpu_torch.analysis.dsp",
+                    "sls_tpu_torch.analysis.importance", "sls_tpu_torch.analysis.score_explainer",
+                    "sls_tpu_torch.analysis.probes", "sls_tpu_torch.analysis.failure_modes",
+                    "sls_tpu_torch.analysis.attribution", "sls_tpu_torch.analysis.visualize",
+                    "sls_tpu_torch.cli.analyze", "sls_tpu_torch.cli.report")
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sls_tpu", "pandas", "sklearn", "msgpack")
 _BLOCKED_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu|pandas|sklearn|msgpack)\b(?!_torch)", re.M)
@@ -74,6 +81,19 @@ def test_every_module_imports_with_jax_blocked():
     assert set(OFFLINE_MODULES) <= names
     assert set(FAMILY_MODULES) <= names
     assert set(ENTRY_MODULES) <= names
+    assert set(ANALYSIS_MODULES) <= names
+
+
+def test_analysis_modules_import_without_matplotlib():
+    """matplotlib is imported only where a figure is drawn."""
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "import importlib\n"
+            f"for name in {ANALYSIS_MODULES!r}:\n"
+            "    importlib.import_module(name)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def test_long_clip_modules_are_checked():
@@ -84,6 +104,7 @@ def test_long_clip_modules_are_checked():
     assert set(OFFLINE_MODULES) <= checked
     assert set(FAMILY_MODULES) <= checked
     assert set(ENTRY_MODULES) <= checked
+    assert set(ANALYSIS_MODULES) <= checked
 
 
 @pytest.mark.parametrize("line", ["import pandas as pd", "from sklearn.metrics import roc_curve",
