@@ -218,7 +218,19 @@ Phases:
      run directory (weights only) through ``main``; ``encode_sae``'s
      codes equal to ``forward``'s bit for bit on four utterances, and the
      gradient attribution on the kernel's codes within ROUTE_ENVELOPE of
-     the plain version's against the SAE encode in fp32;
+     the plain version's against the SAE encode in fp32; (h) the
+     training runners and the parity tools: ``cli.parity_kit`` on the
+     flagship's weights as a reference-named ``.pth`` (its pos-conv as
+     the plain weight, which the converters take beside weight norm's
+     pair) over
+     (a)'s DF files, its topology inferred from the weights, rows 1 and 2
+     once a batch, its scores within SERVE_TOL of (a)'s file (bit-equal
+     expected) and exit 1 against that file shifted by 1e-2; then
+     ``encoder.parity`` on the same encoder as a fairseq file, fp32 with
+     TF32 off: ``PARITY OK``; ``cli.autotrain`` driving one ``cli.main``
+     training subprocess at the tiny width to its target epoch; and
+     ``cli.sweep --dry_run`` over the reference preset (seven autotrain
+     commands);
  19. training across ranks and serving over several devices, on the
      flagship's seeded weights at full width and depth: two ranks spawned
      once, sharing the card over gloo, run (a) the data-parallel flagship
@@ -232,10 +244,16 @@ Phases:
      0.1 the global batch's; (d) a Trainer epoch across the ranks (one CSV
      row and the checkpoints, the primary's; the same figures on both
      ranks); (e) a model_parallel 2 step against the one-process step on
-     the plain SAE route, no SAE kernel launched, peak GiB a rank; then in
-     this process (f) build_scorer_from_params over two replicas on the
-     card at batch 36, within SERVE_TOL of one replica on the halves, its
-     utts/s beside phase 3's (time-sharing one card: no claim).
+     the plain SAE route, no SAE kernel launched, peak GiB a rank; (g) a
+     dp1 x sp2 sequence-parallel flagship step (``sp_model_config``, the
+     201 frames cut 101 / 100, 14 rows, the encoder's dropout 0.1 and the
+     head's 0.3) against the one-process step on the same rows, masks and
+     route: each gradient within 2x the encoder's bf16 rounding, the loss
+     within E2E_TOL or 2x that rounding's, no kernel launched, step ms,
+     the all-reduce's ms over the mesh and peak GiB a rank; then in this
+     process (f) build_scorer_from_params over two replicas on the card at
+     batch 36, within SERVE_TOL of one replica on the halves, its utts/s
+     beside phase 3's (time-sharing one card: no claim).
 
 Any failed check raises and the script exits nonzero.  The line before
 the last is the ``{"kernels": [...]}`` JSON, after a ``{"run": ...}``
@@ -2948,6 +2966,16 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
                                          zero_counts, want_only, launches)
         res["analysis"]["seconds"] = time.perf_counter() - t0
         log(f"phase 18 (g) in {res['analysis']['seconds']:.1f} s")
+
+        # (h) the training runners and the parity tools
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["run_tools"] = phase_run_tools(
+            torch, device, weights, cfg18, work, base, batch, out_a, n_batches, seed, counts,
+            zero_counts, want_only, launches)
+        res["run_tools"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 18 (h) in {res['run_tools']['seconds']:.1f} s")
     finally:
         for srv in servers:
             srv.stop()
@@ -2955,6 +2983,146 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
             os.environ.pop("SLS_TPU_PLATFORM", None)
         shutil.rmtree(work, ignore_errors=True)
     res["launches"] = launches
+    return res
+
+
+PARITY_TOL = 1e-3  # encoder.parity's default: max|Δ| < 1e-3 * max(mean|ref|, 1)
+SWEEP_POINTS = 7  # cli.sweep's reference preset
+
+
+def phase_run_tools(torch, device, weights, cfg18, work: Path, base, batch: int, scores_a: Path,
+                    n_batches: int, seed: int, counts, zero_counts, want_only, launches) -> dict:
+    """Phase 18 (h): ``cli.parity_kit`` on the flagship's weights as a
+    reference-named ``.pth`` over (a)'s DF files, held to (a)'s score
+    file and failing against a shifted one; ``encoder.parity`` on its
+    encoder as a fairseq file; ``cli.autotrain`` driving one ``cli.main``
+    training subprocess at the tiny width to its target epoch; and
+    ``cli.sweep --dry_run`` over the reference preset."""
+    from sls_tpu_torch import config as C
+    from sls_tpu_torch.cli import autotrain, parity_kit, sweep
+    from sls_tpu_torch.cli import main as cli_main
+    from sls_tpu_torch.convert import detector_state_to_reference
+    from sls_tpu_torch.encoder import parity
+    from sls_tpu_torch.scores.writer import read_score_file
+
+    on_card = device.type == "cuda"
+    root = Path(__file__).resolve().parent
+    res = {}
+    db, proto = work / "db", work / "protocols"
+
+    # the flagship as the reference's training run saves it
+    t0 = time.perf_counter()
+    ref_state = detector_state_to_reference({k: v.detach().cpu() for k, v in weights.items()},
+                                            cfg18.model)
+    # the pos-conv as its plain weight, which the converters take beside
+    # weight norm's pair (whose fold rounds it): (a)'s weights bit for bit
+    pos = "ssl_model.model.encoder.pos_conv.0."
+    del ref_state[pos + "weight_g"], ref_state[pos + "weight_v"]
+    ref_state[pos + "weight"] = weights["encoder.pos_conv.conv.weight"].detach().cpu()
+    pth = work / "best_checkpoint_eer.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in ref_state.items()}, "epoch": 0,
+                "args": {"use_window_topk": False, "sae_window_size": WINDOW}}, pth)
+    res["pth_gb"] = pth.stat().st_size / 1e9
+    res["pth_write_s"] = time.perf_counter() - t0
+    enc_pt = work / "xlsr_fairseq.pt"
+    torch.save({"model": {k[len("ssl_model.model."):]: v for k, v in ref_state.items()
+                          if k.startswith("ssl_model.model.")}}, enc_pt)
+    del ref_state
+
+    # cli.parity_kit over the DF eval list, then against (a)'s file and a shifted one
+    kit = ["--cp_path", str(pth), "--eval_list", str(proto / "ASVspoof2021.DF.cm.eval.trl.txt"),
+           "--database_path", str(db / "ASVspoof2021_DF_eval"), "--batch_size", str(batch),
+           "--cut_length", str(cfg18.train.cut_length)]
+    if not on_card:  # the tiny weights do not fit the XLS-R topology inference reads
+        cfg_json = work / "cfg18.json"
+        cfg_json.write_text(C.config_to_json(cfg18))
+        kit += ["--config_json", str(cfg_json)]
+    out_h = work / "scores_kit.txt"
+    sync(torch, device)
+    zero_counts()
+    t0 = time.perf_counter()
+    with StampedLines() as lines:
+        rc = parity_kit.main(kit + ["--out", str(out_h), "--ref_scores", str(scores_a)])
+    kit_s = time.perf_counter() - t0
+    launches["cli_parity_kit"] = counts()
+    text = "\n".join(line for _, line in lines.lines)
+    report = json.loads(text[text.index("{"):])
+    ids_h, got = read_score_file(out_h)
+    ids_a, want = read_score_file(scores_a)
+    res["parity_kit"] = {"seconds": kit_s, "rc": rc, "report": report,
+                         "bit_equal_to_cli_main": bool(ids_h == ids_a
+                                                       and np.array_equal(got, want)),
+                         "inferred": next((line for _, line in lines.lines
+                                           if line.startswith("inferred:")), None),
+                         "launches": launches["cli_parity_kit"]}
+    check(rc == 0 and report["n_compared"] == len(ids_a) and report["max_abs_diff"] <= SERVE_TOL,
+          f"cli.parity_kit scores every file as cli.main does on the same weights: {report}")
+    if on_card:
+        want_only("cli.parity_kit", launches["cli_parity_kit"],
+                  {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+    shifted = work / "scores_shifted.txt"
+    shifted.write_text("".join(f"{u} {s_ + 1e-2}\n" for u, s_ in zip(ids_a, want)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_bad = parity_kit.main(kit + ["--out", str(work / "scores_kit2.txt"),
+                                        "--ref_scores", str(shifted)])
+    res["parity_kit"]["rc_against_shifted"] = rc_bad
+    check(rc_bad == 1, "cli.parity_kit exits 1 against a file shifted by 1e-2")
+    log(f"phase 18 (h) cli.parity_kit: {json.dumps(res['parity_kit'])}")
+
+    # encoder.parity on the same encoder, in fp32
+    t0 = time.perf_counter()
+    with StampedLines() as lines:
+        ok = parity.run_parity(str(enc_pt), "fairseq", None, PARITY_TOL,
+                               cfg=None if on_card else cfg18.model.encoder, device=device)
+    said = [line for _, line in lines.lines]
+    res["encoder_parity"] = {"seconds": time.perf_counter() - t0, "lines": said[:3] + said[-1:]}
+    log(f"phase 18 (h) encoder.parity: {json.dumps(res['encoder_parity'])}")
+    check(ok and said[-1] == "PARITY OK", f"encoder.parity says PARITY OK: {said}")
+
+    # cli.autotrain: one real cli.main training subprocess at the tiny width
+    train_models = work / "autotrain_models"
+    tiny = ["--database_path", str(db), "--protocols_path", str(proto), "--model_dir",
+            str(train_models), "--tiny", "--quick_test", "--num_epochs", "1", "--batch_size",
+            "4", "--sae_dict_size", "256", "--sae_k", "32", "--algo", "0"]
+    run_dir = train_models / cli_main.config_from_args(
+        cli_main.build_parser().parse_args(tiny)).model_tag()
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join([str(root), *filter(None, [env_path])])
+    try:
+        t0 = time.perf_counter()
+        with StampedLines() as lines:
+            rc = autotrain.main(["--target_epoch", "0", "--run_dir", str(run_dir),
+                                 "--restart_delay", "0", "--", *tiny])
+        auto_s = time.perf_counter() - t0
+    finally:
+        if env_path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    attempts = [line for _, line in lines.lines if line.startswith("[autotrain] attempt")]
+    res["autotrain"] = {"seconds": auto_s, "rc": rc, "attempts": len(attempts),
+                        "last_epoch": autotrain.last_epoch(str(run_dir)),
+                        "run_dir": run_dir.name}
+    log(f"phase 18 (h) cli.autotrain: {json.dumps(res['autotrain'])}")
+    check(rc == 0 and len(attempts) == 1 and res["autotrain"]["last_epoch"] == 0
+          and (run_dir / "last.ckpt").exists(),
+          "cli.autotrain trains to its target epoch in one cli.main subprocess")
+
+    # cli.sweep --dry_run over the reference preset
+    sweep_dir = work / "sweep"
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = sweep.main(["--preset", "reference", "--dry_run", "--model_dir", str(sweep_dir),
+                         "--", *base[:4], "--num_epochs", "40"])
+    summary = json.loads((sweep_dir / "sweep_summary.json").read_text())
+    cmds = [p_["cmd"] for p_ in summary["points"].values()]
+    res["sweep_dry_run"] = {"rc": rc, "n_points": summary["n_points"],
+                            "lines": len(out.getvalue().splitlines()),
+                            "run_dirs": sorted(Path(p_["run_dir"]).name
+                                               for p_ in summary["points"].values())}
+    log(f"phase 18 (h) cli.sweep --dry_run: {json.dumps(res['sweep_dry_run'])}")
+    check(rc == 1 and summary["n_points"] == SWEEP_POINTS == len(cmds) and summary["n_done"] == 0
+          and all(c[1:3] == ["-m", "sls_tpu_torch.cli.autotrain"] for c in cmds),
+          "cli.sweep --dry_run lists the preset's seven autotrain commands")
     return res
 
 
@@ -3166,6 +3334,16 @@ PAR_RANKS = 2
 PAR_BATCH = {"cuda": 14, "cpu": 2}  # rows a rank: (a); (b) and (c) take half
 PAR_TRAINER = {"cuda": (14, 28, 28), "cpu": (2, 4, 4)}  # batch a rank, train, val rows
 PAR_SERVE_BATCHES = 5  # (f): timed batches
+# (g) the sequence-parallel flagship step, dp1 x sp2: the two ranks cut
+# each clip's 201 frames 101 / 100 and step the same 14 rows with the
+# encoder's dropout on (the masks the one-process step draws for them,
+# the head's at its default 0.3); its reference is the one-process step
+# on the same rows and route (the plain SAE and front end, which
+# sp_model_config sets), held as (e) holds TP: each gradient within 2x
+# the encoder's own bf16 rounding of that step (the same step with the
+# encoder in fp32), the loss within E2E_TOL or 2x that rounding's
+SP_TRAIN = (1, 2)           # (n_data, n_seq)
+SP_TRAIN_DROPOUT = 0.1      # the encoder's dropout, attention and activation dropout
 
 
 def flat_to_named(torch, flat, model) -> dict:
@@ -3219,6 +3397,7 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
     from sls_tpu_torch.parallel import distributed as dist
     from sls_tpu_torch.parallel import workers
     from sls_tpu_torch.parallel.launch import launch
+    from sls_tpu_torch.parallel.sequence import sp_model_config
     from sls_tpu_torch.scores.writer import log_probs_to_scores
     from sls_tpu_torch.serve.scorer import build_scorer_from_params
     from sls_tpu_torch.train.loss import weighted_nll
@@ -3281,6 +3460,14 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
                  np.random.default_rng(seed + 24).permutation(np.arange(n_val) % 2))
         tp_exp = C.ExperimentConfig(model=cfg, train=dataclasses.replace(
             tcfg, model_parallel=PAR_RANKS))
+        # (g): the flagship with dropout on; the ranks apply sp_model_config
+        sp_cfg = dataclasses.replace(model.config, encoder=dataclasses.replace(
+            model.config.encoder, dropout=SP_TRAIN_DROPOUT,
+            attention_dropout=SP_TRAIN_DROPOUT, activation_dropout=SP_TRAIN_DROPOUT))
+        sp_exp = C.ExperimentConfig(model=sp_cfg, train=tcfg)
+        sp_one = dataclasses.replace(sp_model_config(sp_cfg), encoder=dataclasses.replace(
+            sp_model_config(sp_cfg).encoder, seq_axis=None))
+        gg = global_rows(b, seed + 25)
         common = dict(device_type=device.type, return_weights=False, return_grads=False)
         go, abort = work / "go", work / "abort"
         jobs = [
@@ -3296,6 +3483,9 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
              dict(device_type=device.type)),
             ("train_steps_rank", (tp_exp, "detector", {"seed": seed}, [ge]),
              dict(common, grad_path=str(work / "grad_e.npy"))),
+            ("train_steps_rank", (sp_exp, "detector", {"seed": seed}, [gg]),
+             dict(common, sp=SP_TRAIN, grad_path=str(work / "grad_g.npy"),
+                  time_allreduce=True)),
         ]
         box = {}
 
@@ -3379,6 +3569,23 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
                 old_stats = [float(sls_m.sls_head.first_bn.running_mean),
                              float(sls_m.sls_head.first_bn.running_var)]
             del sls_m, sls_f, out
+
+            # (g) the one-process step on the same rows and route, call 0's
+            # masks of base seed 0 (the ranks' first step), and with the
+            # encoder in fp32 for the envelope
+            m_ = sharing(sp_one)
+            loss_g, _, g_g = grads_of(torch, m_, tcfg, on_dev(gg), 0, device)
+            g_g = host(g_g)
+            loss_gf, _, g_gf = grads_of(torch, sharing(dataclasses.replace(
+                sp_one, encoder=dataclasses.replace(sp_one.encoder, dtype=torch.float32,
+                                                    approx_gelu=True))),
+                tcfg, on_dev(gg), 0, device)
+            g_gf = host(g_gf)
+            ref["g"] = {"loss": loss_g, "g": g_g, "loss_env": abs(loss_g - loss_gf),
+                        "env": {n: rel_l2(g_g[n], g_gf[n]) for n in g_g}}
+            del m_, g_gf
+            if on_card:
+                torch.cuda.empty_cache()
             res["references_s"] = time.perf_counter() - t_ref
 
             # (d) room for the Trainer's checkpoints
@@ -3400,7 +3607,8 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
             + (f", sharing {torch.cuda.device_count()} card(s)" if on_card else "")
             + f": (a) DP flagship step {b} + {b} rows, (b) DP CPC {b // 2} + {b // 2}, (c) DP "
             f"SLS {b // 2} + {b // 2}, (d) Trainer {n_train} / {n_val} utterances at {bt} a "
-            f"rank, (e) TP step model_parallel {PAR_RANKS} on {b} rows; references in "
+            f"rank, (e) TP step model_parallel {PAR_RANKS} on {b} rows, (g) dp{SP_TRAIN[0]} x "
+            f"sp{SP_TRAIN[1]} step on {b} rows, dropout {SP_TRAIN_DROPOUT}; references in "
             f"{res['references_s']:.1f} s")
         t0 = time.perf_counter()
         go.touch()
@@ -3409,13 +3617,13 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
             raise box["error"]
         ranks = box["ranks"]
         res["ranks_s"] = time.perf_counter() - t0  # from the word to go
-        waited, a, bb, c, d, e = ([r[i] for r in ranks] for i in range(6))
+        waited, a, bb, c, d, e, g = ([r[i] for r in ranks] for i in range(7))
         res["job_s_by_rank"] = {k: [r["job_s"] for r in job] for k, job in
-                                zip(("a", "b", "c", "d", "e"), (a, bb, c, d, e))}
+                                zip(("a", "b", "c", "d", "e", "g"), (a, bb, c, d, e, g))}
         # the ranks' start-up (spawn, imports, process group), under the
         # references, and their wind-down after the last job
         res["ranks_start_s"] = [r["job_wall"][0] - wall0 for r in waited]
-        res["ranks_end_s"] = [time.time() - r["job_wall"][1] for r in e]
+        res["ranks_end_s"] = [time.time() - r["job_wall"][1] for r in g]
         log(f"phase 19: the ranks started in {max(res['ranks_start_s']):.1f} s under the "
             f"references, then ran for {res['ranks_s']:.1f} s (wind-down "
             f"{min(res['ranks_end_s']):.1f} s), jobs (s a rank): "
@@ -3549,7 +3757,35 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
         check(all(n == 0 for r in e for n in r["launches"].values()),
               "under TP no SAE kernel (rows 1-3, 5) is launched: the plain route")
         launches_by_path["tp_train"] = {n: sum(r["launches"][n] for r in e) for n in KERNELS}
-        del ref, g_a, g_b, g_e
+
+        # (g) sequence-parallel step
+        g_sp = flat_to_named(torch, np.load(work / "grad_g.npy", mmap_mode="r"), model)
+        ok, worst, floored = envelope_check(g_sp, ref["g"]["g"], None, ref["g"]["env"])
+        frames = model.config.encoder.num_frames(cut)
+        chunk = -(-frames // SP_TRAIN[1])
+        rg = {"mesh": {"data": SP_TRAIN[0], "seq": SP_TRAIN[1]}, "frames": frames,
+              "frames_by_rank": [min(chunk, frames - i * chunk) for i in range(SP_TRAIN[1])],
+              "dropout": SP_TRAIN_DROPOUT, "loss": g[0]["steps"][0]["terms"][0],
+              "loss_one_process": ref["g"]["loss"], "loss_envelope": ref["g"]["loss_env"],
+              "grad_vs_one_process": worst, "held_by_floor": floored,
+              "step_ms_by_rank": [r["steps"][0]["ms"] for r in g],
+              "allreduce_ms": [r.get("allreduce_ms") for r in g],
+              "peak_gib_by_rank": [r["peak_bytes"] / 2**30 for r in g],
+              "launches_by_rank": [r["launches"] for r in g]}
+        res["g_sp_train"] = rg
+        log(f"phase 19 (g) SP flagship step: {json.dumps(rg)}")
+        check(within_loss_envelope(rg["loss"], ref["g"]["loss"], ref["g"]["loss_env"]),
+              "the SP step's loss agrees with the one-process step on the same rows")
+        check(ok, "every gradient of the SP step is within 2x the encoder's bf16 rounding of "
+                  "the one-process step's")
+        check(all(r["steps"][0]["terms"] == g[0]["steps"][0]["terms"] for r in g)
+              and g[0]["steps"][0]["grad_sums"] == g[1]["steps"][0]["grad_sums"],
+              "both seq ranks report the same loss terms and summed gradient")
+        check(g[0]["checksum"] == g[1]["checksum"], "both seq ranks hold the same weights")
+        check(all(n == 0 for r in g for n in r["launches"].values()),
+              "the SP step launches no SAE kernel (nor any other hand-written kernel)")
+        launches_by_path["sp_train"] = {n: sum(r["launches"][n] for r in g) for n in KERNELS}
+        del ref, g_a, g_b, g_e, g_sp
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -38,8 +38,7 @@ one rank uses for both): a data-parallel step hands every rank one
 generator seeded alike for them, so all ranks drop the same layers, as
 the reference's one draw for the global batch does, and a generator of
 the rank's own for the masks, so ranks do not repeat one mask over
-different rows.  Sequence parallelism does not train (``seq_axis``
-with ``train`` raises).
+different rows.
 
 Tensor parallelism (``parallel/tensor.py``): a layer whose ``fc1`` /
 ``fc2`` were cut over the mesh's 'model' axis (``tp`` set) runs its FFN
@@ -57,6 +56,16 @@ data axis divides the batch) through the layers and the final norm,
 which are row-parallel in T except for attention's keys and values.  The
 encoder then returns this rank's ``[B_loc, T_loc, C]``.  With
 ``seq_axis`` set and no mesh given (``shard_for``), or no shard, it raises.
+
+It trains that way too (``train`` with a shard), on the training routes
+above: attention is the einsum path on this rank's q strip against the
+keys and values gathered over 'seq' (differentiably: ``SeqShard``), never
+the long-T kernels, which are eval-only as in the reference.  Each rank
+draws every mask after the cut at the whole T and keeps its frames
+(``dropout(..., shard)``; attention probabilities at ``[b, H, T, T]``,
+cut by q row), so its masks are the ones the same call draws without a
+shard on the same rows, and the generator moves on alike on every seq
+rank; layerdrop draws one scalar a layer, alike too.
 """
 
 from __future__ import annotations
@@ -100,16 +109,23 @@ def gelu_fp32(h: torch.Tensor, approximate: bool, dtype: torch.dtype) -> torch.T
     return F.gelu(h.float(), approximate="tanh" if approximate else "none").to(dtype)
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            shard: Optional[SeqShard] = None, dim: int = 1) -> torch.Tensor:
     """flax ``nn.Dropout``: each entry kept with probability 1 - p and
     scaled by 1 / (1 - p), else zero; the mask drawn from ``generator``
     (``F.dropout`` takes none).  The identity when ``generator`` is None
-    (eval) or p is 0."""
+    (eval) or p is 0.  With ``shard``, axis ``dim`` of ``x`` holds this
+    rank's frames: the mask is drawn at all T and cut to them."""
     if generator is None or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    shape = list(x.shape)
+    if shard is not None:
+        shape[dim] = shard.frames
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    if shard is not None:
+        keep = shard.take_frames(keep, dim)
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -319,24 +335,24 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C], or with ``shard`` this rank's frames of it, whose
-        queries then meet every frame's keys and values (eval only)."""
+        queries then meet every frame's keys and values."""
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         q, k, v = self.q_proj(x, train), self.k_proj(x, train), self.v_proj(x, train)  # [B, T, C]
         q = q * (D ** -0.5)
         # The kernel routes are eval-only, as the reference's
-        # ``deterministic`` gate makes them: the kernel has no backward
-        # (and the encoder refuses ``train`` with ``shard``).
+        # ``deterministic`` gate makes them: the kernel has no backward.
         if shard is not None:
             # The reference's gate, which depends on shapes and the mesh
-            # only, so every rank takes the same route: the long-T kernel
-            # where the frames divide evenly into strips with a q-block of
-            # 128 rows or more and the data axis divides the batch, else
-            # the einsum path below against gathered k and v.
+            # only, so every rank takes the same route: at eval the long-T
+            # kernel where the frames divide evenly into strips with a
+            # q-block of 128 rows or more and the data axis divides the
+            # batch, else the einsum path below against gathered k and v.
             # ``fused_attention`` is off under ``seq_axis``.
-            if (cfg.flash_long_t and shard.frames >= cfg.flash_long_t and shard.even
-                    and sp_block_q(shard.frames // shard.n_seq) and shard.rows_divide):
+            if (not train and cfg.flash_long_t and shard.frames >= cfg.flash_long_t
+                    and shard.even and sp_block_q(shard.frames // shard.n_seq)
+                    and shard.rows_divide):
                 return self.out_proj(sp_flash_attention_long(q, k, v, H, shard.seq_group))
             k, v = shard.gather_frames(torch.stack([k, v]), dim=2).unbind(0)
         elif not train and cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
@@ -349,7 +365,7 @@ class SelfAttention(nn.Module):
             return self.out_proj(fused_attention(q, k, v).reshape(B, T, C))
         scores = torch.einsum("bthd,bshd->bhts", q, k)
         probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
-        probs = dropout(probs, cfg.attention_dropout, generator)
+        probs = dropout(probs, cfg.attention_dropout, generator, shard, dim=2)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
         return self.out_proj(ctx, train)
 
@@ -373,7 +389,8 @@ class TransformerLayer(nn.Module):
         self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device, cfg.int8_serving)
         self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim, cfg.dtype, device, cfg.int8_serving)
 
-    def _ffn(self, h: torch.Tensor, train: bool, gen: Optional[torch.Generator]) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, train: bool, gen: Optional[torch.Generator],
+             shard: Optional[SeqShard] = None) -> torch.Tensor:
         cfg, tp = self.config, self.tp
         h = self.fc1(h, train) if tp is None else column_linear(self.fc1, h, tp)
         if cfg.activation == "gelu":
@@ -381,8 +398,8 @@ class TransformerLayer(nn.Module):
         else:
             h = torch.relu(h.float()).to(cfg.dtype)
         if tp is None:
-            h = dropout(h, cfg.activation_dropout, gen)
-            return dropout(self.fc2(h, train), cfg.dropout, gen)
+            h = dropout(h, cfg.activation_dropout, gen, shard)
+            return dropout(self.fc2(h, train), cfg.dropout, gen, shard)
         h = cut_dropout(h, cfg.activation_dropout, gen, tp)
         return dropout(row_linear(self.fc2, h, tp), cfg.dropout, gen)
 
@@ -391,13 +408,13 @@ class TransformerLayer(nn.Module):
         cfg, gen = self.config, generator
 
         def attn(h):
-            return dropout(self.self_attn(h, shard, train, gen), cfg.dropout, gen)
+            return dropout(self.self_attn(h, shard, train, gen), cfg.dropout, gen, shard)
 
         if cfg.layer_norm_first:
             x = x + attn(self.self_attn_layer_norm(x))
-            return x + self._ffn(self.final_layer_norm(x), train, gen)
+            return x + self._ffn(self.final_layer_norm(x), train, gen, shard)
         x = self.self_attn_layer_norm(x + attn(x))
-        return self.final_layer_norm(x + self._ffn(x, train, gen))
+        return self.final_layer_norm(x + self._ffn(x, train, gen, shard))
 
 
 class XLSREncoder(nn.Module):
@@ -448,10 +465,6 @@ class XLSREncoder(nn.Module):
         (required then, on the encoder's device) and every layerdrop draw
         from ``layerdrop_generator`` (default ``generator``)."""
         cfg = self.config
-        if train and cfg.seq_axis:
-            raise NotImplementedError(
-                "training under sequence parallelism (seq_axis) is not ported (ROADMAP.md "
-                "section 1); train across ranks data or tensor parallel")
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout and layerdrop")
         gen = generator if train else None
@@ -474,7 +487,8 @@ class XLSREncoder(nn.Module):
             x = shard.take_frames(x)
         hidden_states: List[torch.Tensor] = []
         for layer in self.layers:
-            x = layer(x, shard) if gen is None else self._train_layer(layer, x, gen, ld_gen)
+            x = (layer(x, shard) if gen is None
+                 else self._train_layer(layer, x, shard, gen, ld_gen))
             if return_hidden_states:
                 hidden_states.append(x)
         if cfg.layer_norm_first:
@@ -483,7 +497,8 @@ class XLSREncoder(nn.Module):
             return x, hidden_states
         return x
 
-    def _train_layer(self, layer: TransformerLayer, x: torch.Tensor, gen: torch.Generator,
+    def _train_layer(self, layer: TransformerLayer, x: torch.Tensor,
+                     shard: Optional[SeqShard], gen: torch.Generator,
                      ld_gen: torch.Generator) -> torch.Tensor:
         """One layer under ``train``: layerdrop as compute-and-select (its
         draw from ``ld_gen``, which may be ``gen``), and with ``remat`` the
@@ -504,14 +519,14 @@ class XLSREncoder(nn.Module):
             def run(h):
                 g = torch.Generator(device=h.device)
                 g.set_state(start)
-                out = layer(h, train=True, generator=g)
+                out = layer(h, shard, train=True, generator=g)
                 end[:] = [g.get_state()]
                 return out
 
             y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
             gen.set_state(end[0])
         else:
-            y = layer(x, train=True, generator=gen)
+            y = layer(x, shard, train=True, generator=gen)
         return y if keep is None else torch.where(keep, y, x)
 
 

@@ -6,8 +6,9 @@ Linear(256, 2), log-softmax outputs, all in fp32.  Class 1 = bonafide.
 Dropout (rate ``dropout``, 0.3 by default) after the ReLU under
 ``train``, its mask from the caller's generator.  Under sequence
 parallelism the features are this rank's frames, and the mean-pool is a
-local sum, one all-reduce over the sequence axis and a division by the
-global frame count.  Under tensor parallelism (``tp`` set,
+local sum, one all-reduce over the sequence axis (under grad mode one
+whose backward sums the seq ranks' gradients, ``SeqShard.sum_frames``)
+and a division by the global frame count.  Under tensor parallelism (``tp`` set,
 ``parallel/tensor.py``) ``fc1`` is cut by output and ``fc2`` by input
 over the mesh's 'model' axis, the dropout mask drawn at the whole width
 and cut.

@@ -33,6 +33,19 @@ all-reduced over the sequence axis, and every rank returns every row's
 ``log_probs`` and the global ``sae_loss``.  ``features``, ``codes`` and
 ``recon`` stay this rank's part.
 
+Under ``train`` with a mesh (a sequence-parallel train step,
+``train/steps.py``) the rows are already this data coordinate's: the
+step hands the model ``parallel/mesh.py::one_data_coordinate(mesh)``,
+whose shard cuts frames only.  The losses are then this rank's shares
+of the mesh's, which sum over every rank of the mesh to the global
+value, as a data-parallel step's sum over 'data': the per-timestep SAE
+loss is this rank's frames' sum of squares over the global count; what
+runs whole on every seq rank after a reduction over 'seq' (the window
+variants' SAE loss on gathered features, the CPC loss on gathered codes)
+enters at 1 / n_seq, since the backward of the gathers and sums sums
+the seq ranks' gradients.  The step scales the NLL of the pooled head
+likewise.
+
 In a data-parallel train step the step passes its mesh's 'data' group
 (``data_group``): ``sae_loss`` and ``cpc_loss`` are then this rank's
 shares of the global batch's losses (``sae/topk.py::reconstruction_loss``,
@@ -133,6 +146,9 @@ class Detector(nn.Module):
             raise ValueError("train=True needs a generator for dropout")
         feats32, shard, frames = self._encode(wav, mesh, train, generator, layerdrop_generator)
         ranks = group_size(data_group) if data_group is not None else 1
+        # the seq ranks that compute a term whole after a reduction over
+        # 'seq', each taking 1 / copies of it (module docstring)
+        copies = shard.n_seq if train and shard is not None else 1
         zero = torch.zeros((), dtype=torch.float32, device=feats32.device)
         out: Dict[str, torch.Tensor] = {"features": feats32}
         sae_loss = cpc_loss = zero
@@ -141,6 +157,10 @@ class Detector(nn.Module):
             recon = self.sae.decode(codes)
             if shard is None:
                 sae_loss = reconstruction_loss(recon, feats32, ranks)
+            elif train:  # this rank's share of the mesh's mean
+                sq = torch.square(recon.float() - feats32).sum()
+                count = shard.rows * shard.frames * feats32.shape[-1] * ranks
+                sae_loss = sq / (count if frames is not None else count * copies)
             else:  # the mean over every row and frame, from this rank's sum
                 sq = torch.square(recon - feats32).sum()
                 if frames is not None:
@@ -150,11 +170,9 @@ class Detector(nn.Module):
             out["recon"] = recon
             cls_in = codes if cfg.use_sparse_features else recon
             if cfg.use_cpc and compute_cpc:
-                if shard is not None:
-                    raise NotImplementedError("the CPC loss under sequence parallelism: its "
-                                              "negatives span the global batch")
-                windows = aggregate_windows_mean(codes, cfg.sae.window_size)
-                cpc_loss = self.cpc(windows, data_group)
+                whole = codes if frames is None else shard.gather_frames(codes)
+                windows = aggregate_windows_mean(whole, cfg.sae.window_size)
+                cpc_loss = self.cpc(windows, data_group) / copies
                 out["window_features"] = windows
         else:
             cls_in = feats32

@@ -12,8 +12,14 @@ whose collectives are the identity.
 
 ``SeqShard`` says how one ``[B, T, C]`` activation is cut over a
 ``('data', 'seq')`` mesh, and carries the collectives that the
-sequence-parallel encoder, SAE and head need across the cut.
-``pad_batch_to_devices`` is an own copy of the reference's batch padding.
+sequence-parallel encoder, SAE and head need across the cut: under grad
+mode they are differentiable (``distributed.gather_over`` /
+``sum_over``, whose backward sums the ranks' gradients: the gradient of
+a loss that is the sum of every rank's share), under ``inference_mode``
+or ``no_grad`` plain collectives.  ``one_data_coordinate`` is the mesh as
+the ranks of one data coordinate see it, for rows that are already cut
+by data coordinate (a train step's).  ``pad_batch_to_devices`` is an own
+copy of the reference's batch padding.
 """
 
 from __future__ import annotations
@@ -26,7 +32,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from sls_tpu_torch.parallel.distributed import all_gather_cat, process_count, process_index
+from sls_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    gather_over,
+    process_count,
+    process_index,
+    sum_over,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,13 +46,15 @@ class Mesh:
     """Ranks ``ranks[0] .. ranks[-1]`` laid out row-major on ``axis_names``
     with sizes ``shape``; ``coords`` is this rank's place and ``groups``
     its process group along each axis (None on an axis of size 1 or when
-    this rank is not part of the mesh)."""
+    this rank is not part of the mesh); ``group`` holds every rank of the
+    mesh (None: the job's world group, when the mesh holds every rank)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     ranks: Tuple[int, ...]
     coords: Optional[Dict[str, int]]
     groups: Dict[str, Optional[dist.ProcessGroup]]
+    group: Optional[dist.ProcessGroup] = None
 
 
 def axis_of(mesh: Optional[Mesh], name: str) -> Tuple[Optional[dist.ProcessGroup], int, int]:
@@ -89,7 +103,27 @@ def make_mesh(axis_names: Sequence[str] = ("data",), shape: Optional[Sequence[in
             group = dist.new_group(members)  # every rank creates every group
             if me in members:
                 groups[name] = group
-    return Mesh(axis_names, dict(zip(axis_names, shape)), ranks, coords, groups)
+    whole = dist.new_group(list(ranks)) if len(ranks) < world else None
+    return Mesh(axis_names, dict(zip(axis_names, shape)), ranks, coords, groups,
+                whole if me in ranks else None)
+
+
+def one_data_coordinate(mesh: Mesh) -> Mesh:
+    """``mesh`` as the ranks of this rank's data coordinate see it: its
+    'data' axis cut to this coordinate (size 1), so that a ``SeqShard`` on
+    it cuts frames only.  The view for rows that are already this data
+    coordinate's, which is how a train step is handed them (every rank of
+    the coordinate gets the same rows).  The view is for ``SeqShard``
+    alone: its ``group`` is left unset.  ``mesh`` itself when it has no
+    'data' axis of more than one rank."""
+    n_data = mesh.shape.get("data", 1)
+    if n_data == 1 or mesh.coords is None:
+        return mesh
+    axis = mesh.axis_names.index("data")
+    grid = np.asarray(mesh.ranks).reshape([mesh.shape[a] for a in mesh.axis_names])
+    ranks = tuple(int(r) for r in np.take(grid, mesh.coords["data"], axis=axis).reshape(-1))
+    return Mesh(mesh.axis_names, {**mesh.shape, "data": 1}, ranks,
+                {**mesh.coords, "data": 0}, {**mesh.groups, "data": None})
 
 
 class SeqShard:
@@ -98,10 +132,11 @@ class SeqShard:
     'data' axis (if any) shards rows.
 
     Frames are cut into ``n_seq`` chunks of ceil(T / n_seq); the last
-    chunks may be short or empty, and the gathers pad and trim them.
-    Rows are cut only when the data axis divides them (the reference's
-    kernel gate asks the same); otherwise every data coordinate keeps
-    all rows and computes the same values."""
+    chunks may be short or empty, and the gathers pad and trim them (the
+    backward drops the pad's gradient).  Rows are cut only when the data
+    axis divides them (the reference's kernel gate asks the same);
+    otherwise every data coordinate keeps all rows and computes the same
+    values.  On ``one_data_coordinate(mesh)`` rows are not cut."""
 
     def __init__(self, mesh: Mesh, seq_axis: str, rows: int, frames: int):
         if seq_axis not in mesh.axis_names:
@@ -129,10 +164,10 @@ class SeqShard:
         n = self.rows // self.n_data
         return x[self.data_index * n:(self.data_index + 1) * n]
 
-    def take_frames(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's frames of a ``[b, T, ...]`` tensor."""
+    def take_frames(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's frames of a tensor whose axis ``dim`` holds all T."""
         lo = self.seq_index * self.chunk
-        return x[:, lo:lo + self.chunk]
+        return x[(slice(None),) * dim + (slice(lo, lo + self.chunk),)]
 
     def gather_frames(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """``[b, T_loc, ...]`` shards -> the whole ``[b, T, ...]`` on every
@@ -143,27 +178,37 @@ class SeqShard:
             pad = list(x.shape)
             pad[dim] = self.chunk - x.shape[dim]
             x = torch.cat([x, x.new_zeros(pad)], dim=dim)
-        return all_gather_cat(x, self.seq_group, dim=dim).narrow(dim, 0, self.frames)
+        if torch.is_grad_enabled():
+            whole = gather_over(x, self.seq_group, dim)
+        else:
+            whole = all_gather_cat(x, self.seq_group, dim=dim)
+        return whole.narrow(dim, 0, self.frames)
 
     def sum_frames(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of every seq rank's ``x`` (a sum over local frames becomes
         the sum over all frames)."""
-        if self.n_seq > 1:
-            x = x.contiguous()
-            dist.all_reduce(x, group=self.seq_group)
-        return x
+        return self._sum(x, self.n_seq, self.seq_group)
 
     def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of every data rank's ``x`` where rows are cut."""
-        if self.n_data > 1:
-            x = x.contiguous()
-            dist.all_reduce(x, group=self.data_group)
+        return self._sum(x, self.n_data, self.data_group)
+
+    @staticmethod
+    def _sum(x: torch.Tensor, ranks: int, group) -> torch.Tensor:
+        if ranks == 1:
+            return x
+        if torch.is_grad_enabled():
+            return sum_over(x, group)
+        x = x.contiguous()
+        dist.all_reduce(x, group=group)
         return x
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[B / n_data, ...]`` per data coordinate -> ``[B, ...]``."""
         if self.n_data == 1:
             return x
+        if torch.is_grad_enabled():
+            return gather_over(x, self.data_group, 0)
         return all_gather_cat(x, self.data_group, dim=0)
 
 

@@ -1,32 +1,55 @@
-"""Sequence parallelism for long-context (unwindowed) scoring, counterpart
-of ``sls_tpu/parallel/sequence.py``.
+"""Sequence parallelism: one clip's frames cut across ranks, for
+long-context (unwindowed) scoring and for training, counterpart of
+``sls_tpu/parallel/sequence.py``.
 
-One long utterance on many cards: a ``('data', 'seq')`` mesh of ranks
-(``sp_mesh``), ``XLSRConfig.seq_axis = 'seq'`` (``sp_model_config``), and
-a scoring function that hands the mesh to the model (``sp_scoring_fn``).
-The reference only annotates and lets its compiler derive the program;
-the port writes the program out, one process per rank:
+A ``('data', 'seq')`` mesh of ranks (``sp_mesh``), ``XLSRConfig.seq_axis
+= 'seq'`` (``sp_model_config``), and the mesh handed to the model: by a
+scoring function (``sp_scoring_fn``), or by the train and eval steps
+(``train/steps.py::make_train_step`` / ``make_eval_step`` with
+``mesh=``, and ``Trainer(..., mesh=)``).  The reference only annotates
+and lets its compiler derive the program, the backward included; the
+port writes the program out, one process per rank:
 
 - the conv front-end, projection and pos-conv run on the whole clip on
   every rank (O(T), and a halo exchange through seven strided convs buys
   nothing at these sizes);
 - the transformer layers run on each rank's chunk of frames; LayerNorm
   and the FFN are row-parallel in T, attention all-gathers keys and
-  values over the 'seq' group once a layer and, where the strips divide
-  evenly, runs the hand-written long-T kernel on its q strip
-  (``kernels/attention.py::sp_flash_attention_long``);
+  values over the 'seq' group once a layer; at eval, where the strips
+  divide evenly, it runs the hand-written long-T kernel on its q strip
+  (``kernels/attention.py::sp_flash_attention_long``), else, and always
+  in training, the einsum path;
 - the per-timestep SAE is row-parallel; the window variants reduce over
   frames, so the features are gathered over 'seq' before them (a halo
   exchange of one window would move less: a later refinement);
 - the head's mean-pool is a local sum, one all-reduce over 'seq', and a
-  division by the global T; rows cut over 'data' are gathered at the end,
-  so every rank returns every row's log-probs.
+  division by the global T.
 
-Every rank of a mesh must be handed the same waveforms in the same
-order, and holds the same weights (``sp_scoring_fn`` checks that once).
+Scoring: every rank of a mesh is handed the same waveforms in the same
+order and holds the same weights (``sp_scoring_fn`` checks that once);
+rows cut over 'data' are gathered at the end, so every rank returns every
+row's log-probs.
+
+Training: each rank is handed its data coordinate's rows (the
+data-parallel step's convention) and the model cuts frames only.  The
+gathers and sums over 'seq' are differentiable (``parallel/mesh.py::
+SeqShard``), their backward summing the seq ranks' gradients, so each
+rank's loss is its share of the global one and one all-reduce over the
+mesh sums the gradient.  A term computed whole on every seq rank after a
+reduction over 'seq' (the head's NLL, the window variants' SAE and CPC
+losses) enters each rank's share at 1 / n_seq; a sum over this rank's
+frames (the per-timestep SAE loss) enters as it is; the front-end's
+gradient reaches each rank through its own frames only, and the sum
+over the mesh makes it whole.  Dropout masks are drawn at the whole T
+and cut, so a sequence-parallel step draws what the unsharded step
+draws on the same rows.  No Pallas kernel runs in the reference's
+sequence-parallel train step, and no hand-written kernel here.
+
 Like every layout knob ``seq_axis`` changes no result beyond summation
 order; ``tests/test_torch_sequence_parallel.py`` holds the scores to the
-single-process program and to the JAX package's sequence-parallel one.
+single-process program and to the JAX package's sequence-parallel one,
+``tests/test_torch_sp_train.py`` the train step's loss terms, scores and
+every gradient to the one-process and data-parallel steps.
 """
 
 from __future__ import annotations
@@ -57,8 +80,9 @@ def sp_model_config(model_cfg, axis: str = "seq"):
     are a limit of its compiler (a Pallas call does not shard through
     it); in the port they keep parity with the reference's routes, since
     at bf16 the kernel routes are other roundings of the same functions.
-    The long-T attention kernel stays on: the encoder runs it per strip
-    (``sp_flash_attention_long``) where the layout divides evenly."""
+    The long-T attention kernel stays on at eval: the encoder runs it per
+    strip (``sp_flash_attention_long``) where the layout divides evenly;
+    the train route never calls it."""
     enc = model_cfg.encoder
     if enc.seq_axis != axis or enc.fused_frontend:
         model_cfg = dataclasses.replace(

@@ -8,9 +8,9 @@ and results are plain picklable values (configs, numpy arrays, lists).
 - ``produce_scores_rank``: this rank's shard of a score file.
 - ``collectives_rank``: every host-array helper of
   ``parallel/distributed.py`` once, for the tests.
-- ``train_steps_rank``: train steps of the global batch, data parallel
-  or tensor parallel, with what a test holds them to (losses, the summed
-  gradient, the weights after, launches).
+- ``train_steps_rank``: train steps of the global batch, data, tensor
+  or sequence parallel, with what a test holds them to (losses, scores,
+  the summed gradient, the weights after, launches).
 - ``draws_rank``: one training forward of the encoder on the same audio
   on every rank, with the step's generators.
 - ``trainer_rank``: ``Trainer`` / ``SLSTrainer`` fits across the ranks,
@@ -22,6 +22,7 @@ and results are plain picklable values (configs, numpy arrays, lists).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -36,7 +37,7 @@ from sls_tpu_torch.kernels import attention, frontend, sae_kernels
 from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.parallel import distributed as dist
 from sls_tpu_torch.parallel.mesh import SeqShard
-from sls_tpu_torch.parallel.sequence import sp_mesh, sp_scoring_fn
+from sls_tpu_torch.parallel.sequence import sp_mesh, sp_model_config, sp_scoring_fn
 from sls_tpu_torch.train.loop import produce_scores
 from sls_tpu_torch.train.steps import make_eval_step
 
@@ -225,18 +226,23 @@ def train_steps_rank(exp, family: str, weights: Mapping, batches: Sequence[Tuple
                      device_type: str = "cpu", nan_step: Optional[int] = None,
                      nan_rank: int = 1, grad_path: Optional[str] = None,
                      return_weights: bool = True, return_grads: bool = True,
-                     time_allreduce: bool = False) -> Dict:
+                     time_allreduce: bool = False,
+                     sp: Optional[Tuple[int, int]] = None) -> Dict:
     """Run ``make_train_step`` (``family`` "detector") or
     ``make_sls_train_step`` ("sls") over ``batches`` of the global batch
     (wav, labels, valid), each rank on its data coordinate's rows: on a
-    'data' mesh of every rank, or with ``exp.train.model_parallel`` > 1 on
+    'data' mesh of every rank, with ``exp.train.model_parallel`` > 1 on
     the ('data', 'model') mesh of ``parallel/tensor.py`` with the model cut
-    over 'model'.  ``weights`` is a whole state dict (numpy), ``{"seed":
+    over 'model', or with ``sp`` = (n_data, n_seq) on ``sp_mesh(n_seq,
+    n_data)`` over the job's first ranks, sequence parallel where n_seq >
+    1 (``sp_model_config``; ranks outside the mesh return None).
+    ``weights`` is a whole state dict (numpy), ``{"seed":
     s}`` (drawn on the device) or ``{"path": p}`` (a ``torch.save`` of
     one).  At ``nan_step`` rank ``nan_rank`` plants a NaN in its batch.
 
     Returns per step ``terms`` (loss, cls_loss, sae_loss, cpc_loss),
-    ``finite``, ``correct``, ``ms`` (host clock, synchronised) and the flat
+    ``finite``, ``correct``, this rank's ``scores``, ``ms`` (host clock,
+    synchronised) and the flat
     gradient the optimizer got (summed over 'data', whole over 'model'):
     its [sum, sum of squares] as ``grad_sums``, and the gradient itself
     as ``grad`` (numpy; with ``return_grads``) or, with ``grad_path``,
@@ -246,7 +252,9 @@ def train_steps_rank(exp, family: str, weights: Mapping, batches: Sequence[Tuple
     (``bn_stats``).
     After the steps: ``checksum`` (this rank's tensors), ``buffers``,
     ``step``, ``launches``, ``peak_bytes``, with ``time_allreduce`` the ms
-    of one all-reduce of a buffer of the gradient's size over 'data', and
+    of one all-reduce of a buffer of the gradient's size over the ranks
+    the step sums it over ('data', or every rank of a sequence-parallel
+    mesh), and
     with ``return_weights`` the whole weights (numpy, on rank 0)."""
     from sls_tpu_torch.models.sls import SLSDetector, make_sls_train_step
     from sls_tpu_torch.parallel.mesh import axis_of, make_mesh
@@ -259,6 +267,12 @@ def train_steps_rank(exp, family: str, weights: Mapping, batches: Sequence[Tuple
     cut = int(np.asarray(batches[0][0]).shape[1])
     if exp.train.model_parallel > 1:
         mesh, exp = tp_mesh_and_config(exp)
+    elif sp is not None:
+        mesh = sp_mesh(sp[1], n_data=sp[0])
+        if mesh.coords is None:
+            return None
+        if sp[1] > 1:
+            exp = dataclasses.replace(exp, model=sp_model_config(exp.model))
     else:
         mesh = make_mesh(("data",))
     kwargs = {"cut_length": cut} if family == "sls" else {}
@@ -335,7 +349,8 @@ def train_steps_rank(exp, family: str, weights: Mapping, batches: Sequence[Tuple
             sync()
             res = {"ms": (time.perf_counter() - t0) * 1e3,
                    "terms": [float(m[k]) for k in ("loss", "cls_loss", "sae_loss", "cpc_loss")],
-                   "finite": bool(m["finite"]), "correct": int(m["correct"])}
+                   "finite": bool(m["finite"]), "correct": int(m["correct"]),
+                   "scores": m["scores"].float().cpu().numpy()}
             g = whole(captured.pop()[:n_params])
             res["grad_sums"] = [float(g.double().sum()), float(g.double().square().sum())]
             if grad_path is not None:
@@ -354,6 +369,8 @@ def train_steps_rank(exp, family: str, weights: Mapping, batches: Sequence[Tuple
             out["steps"].append(res)
     out["launches"] = _delta(before_launches)
     out["peak_bytes"] = torch.cuda.max_memory_allocated(device) if on_card else 0
+    if sp is not None and sp[1] > 1:  # the step sums over every rank of the mesh
+        group, count = mesh.group, len(mesh.ranks)
     if time_allreduce and count > 1:
         buf = torch.zeros(n_params, device=device)
         sync()
@@ -401,21 +418,25 @@ def draws_rank(exp, wav: np.ndarray, call: int, device_type: str = "cpu") -> Dic
 
 
 def trainer_rank(exp, family: str, run_dir: str, train: Tuple, val: Tuple, batch_size: int,
-                 epochs: int, resume: bool = False, device_type: str = "cpu") -> Dict:
+                 epochs: int, resume: bool = False, device_type: str = "cpu",
+                 n_seq: int = 1) -> Dict:
     """``fit`` of a ``Trainer`` ("detector") or ``SLSTrainer`` ("sls") over
     this rank's data shard (``host_shard`` of ``train`` / ``val``, each
-    (wav, labels)) up to ``epochs``, after ``resume()`` when asked; returns each
-    epoch's train and validation figures as this rank saw them, the
-    state's checksum, ``step`` and ``calls``, the kernel ``launches`` and
-    the fit's seconds."""
-    import dataclasses
-
+    (wav, labels)) up to ``epochs``, after ``resume()`` when asked; with
+    ``n_seq`` > 1 a ``Trainer`` on ``sp_mesh(n_seq, ranks / n_seq)`` with
+    ``sp_model_config``.  Returns each epoch's train and validation
+    figures as this rank saw them, the state's checksum, ``step`` and
+    ``calls``, the kernel ``launches`` and the fit's seconds."""
     from sls_tpu_torch.models.sls import SLSTrainer
     from sls_tpu_torch.train import loop
 
     device = dist.local_device(device_type)
     cls = SLSTrainer if family == "sls" else loop.Trainer
-    trainer = cls(exp, run_dir, tensorboard=False, device=device)
+    mesh = None
+    if n_seq > 1:
+        mesh = sp_mesh(n_seq, n_data=dist.process_count() // n_seq)
+        exp = dataclasses.replace(exp, model=sp_model_config(exp.model))
+    trainer = cls(exp, run_dir, tensorboard=False, device=device, mesh=mesh)
     trainer.init_state()
     resumed = trainer.resume() if resume else False
     metrics: List = []

@@ -53,6 +53,14 @@ waits for the backward.  With ``model_parallel = M`` > 1 the job's ranks
 one data coordinate step the same rows (``data_shard`` says which shard
 a rank's loaders take), and checkpoints hold whole tensors, gathered
 for the primary.
+
+``Trainer(cfg, run_dir, mesh=mesh)`` trains on the caller's mesh
+instead, as the reference's ``mesh`` argument does: a ('data', 'seq')
+mesh (``parallel/sequence.py::sp_mesh``) with a config from
+``sp_model_config`` trains and validates sequence parallel, the seq
+ranks of one data coordinate taking that coordinate's shard
+(``train/steps.py``); one rank of each coordinate writes its part of a
+score file.
 """
 
 from __future__ import annotations
@@ -76,7 +84,7 @@ from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.metrics.eer import roc_eer
 from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.parallel import distributed as dist
-from sls_tpu_torch.parallel.mesh import axis_of, make_mesh
+from sls_tpu_torch.parallel.mesh import Mesh, axis_of, make_mesh
 from sls_tpu_torch.parallel.sequence import weights_checksum
 from sls_tpu_torch.parallel.tensor import (
     cut_state_dict,
@@ -208,15 +216,21 @@ class BaseTrainer:
     log_prefix = ""
 
     def __init__(self, cfg: ExperimentConfig, run_dir, tensorboard: bool = True,
-                 profile_steps: int = 0, device: DeviceLike = "cuda"):
+                 profile_steps: int = 0, device: DeviceLike = "cuda",
+                 mesh: Optional[Mesh] = None):
         # profile_steps > 0: a torch.profiler trace of that many steps
         # from the second step of the first trained epoch, in run_dir/profile
         # (train/profiling.py: op_histogram reads it)
         self._refuse(cfg)
-        self.mesh = None
-        if cfg.train.model_parallel > 1:
+        if mesh is not None and len(mesh.ranks) != dist.process_count():
+            # the epoch loop's weight broadcast, barriers and part files
+            # span the job
+            raise ValueError(f"the Trainer's mesh holds {len(mesh.ranks)} of the job's "
+                             f"{dist.process_count()} ranks: give it a mesh of every rank")
+        self.mesh = mesh  # the caller's (module docstring), else:
+        if mesh is None and cfg.train.model_parallel > 1:
             self.mesh, cfg = tp_mesh_and_config(cfg)
-        elif dist.process_count() > 1:
+        elif mesh is None and dist.process_count() > 1:
             self.mesh = make_mesh(("data",))
         self.tp = model_shard(self.mesh)
         self.data_group, self.data_index, self.data_ranks = axis_of(self.mesh, "data")
@@ -568,11 +582,13 @@ class BaseTrainer:
         function ``produce_scores`` on this trainer's eval step)."""
         if self.state is None:
             raise RuntimeError("call init_state() (and resume()) first")
-        if self.tp is None:
+        coords = self.mesh.coords if self.mesh is not None else None
+        if not coords or self.data_ranks == len(self.mesh.ranks):
             return produce_scores(self._run_eval, loader, out_path)
-        # one writer a data shard: its 'model' rank 0
+        # one writer a data shard: its rank 0 along the mesh's other axes
         return produce_scores(self._run_eval, loader, out_path,
-                              part=(self.data_index, self.data_ranks, self.tp.index == 0))
+                              part=(self.data_index, self.data_ranks,
+                                    all(i == 0 for a, i in coords.items() if a != "data")))
 
 
 class Trainer(BaseTrainer):
@@ -585,7 +601,7 @@ class Trainer(BaseTrainer):
         self.model = Detector(self.cfg.model, device=self.device, generator=gen)
         self.train_step = make_train_step(self.model, self.cfg, device=self.device,
                                           mesh=self.mesh)
-        self.eval_step = make_eval_step(self.model, device=self.device)
+        self.eval_step = make_eval_step(self.model, device=self.device, mesh=self.mesh)
 
     def _create_state(self):
         return create_train_state(self.model, self.cfg)

@@ -38,6 +38,21 @@ back global, ``scores`` and ``correct`` this rank's.  Under tensor
 parallelism the mesh's 'model' ranks hold the same rows and compute the
 same loss: the all-reduce runs over 'data' alone.  In a one-rank job
 every draw and every number is what it was without a mesh.
+
+Sequence parallelism (a ``('data', 'seq')`` mesh, ``parallel/sequence.py::
+sp_mesh``, and a model built with ``sp_model_config``): the row
+convention is the data-parallel step's.  Every rank is handed its data
+coordinate's rows, the seq ranks of one coordinate the same rows, and
+the model gets ``one_data_coordinate(mesh)``, on which the encoder cuts
+frames only: the rows are cut once, by the caller.  The seq ranks share
+their coordinate's dropout generator, so their masks are the ones the
+data-parallel step draws for those rows (the encoder draws each at the
+whole T and cuts it).  Each rank's loss terms are its shares of the
+mesh's (``models/detector.py``; the NLL of the head, which every seq rank
+computes whole, at 1 / n_seq), and the one all-reduce of the flat
+gradient and the terms runs over every rank of the mesh.  No kernel
+runs: ``sp_model_config`` turns the SAE and front-end kernels off, and
+the long-T attention kernels are eval-only.
 """
 
 from __future__ import annotations
@@ -55,7 +70,7 @@ from sls_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.models.detector import Detector, total_loss
 from sls_tpu_torch.parallel.distributed import to_device
-from sls_tpu_torch.parallel.mesh import Mesh, axis_of
+from sls_tpu_torch.parallel.mesh import Mesh, axis_of, one_data_coordinate
 from sls_tpu_torch.train.loss import weighted_nll
 
 _LN256 = 5.545177444479562  # log(256), mu=255 companding
@@ -307,12 +322,33 @@ def step_generators(base_seed: int, call: int, device: DeviceLike, mesh: Optiona
             dropout_generator(base_seed, call, device))
 
 
-def global_terms(state: TrainState, terms: torch.Tensor, mesh: Optional[Mesh]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the flat gradient, the loss terms) summed over the mesh's 'data'
-    group in one all-reduce (module docstring); this rank's own without
-    a data axis.  Consumes the parameters' ``.grad``."""
+def seq_ranks(model: nn.Module, mesh: Optional[Mesh]) -> int:
+    """Ranks of ``mesh`` that share one data coordinate's rows and cut
+    their frames: the size of the axis the model's ``seq_axis`` names
+    (1 without one)."""
+    axis = model.config.encoder.seq_axis
+    return axis_of(mesh, axis)[2] if axis else 1
+
+
+def _model_mesh(model: nn.Module, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """What the model is handed of a step's ``mesh``: the data
+    coordinate's view with a ``seq_axis`` (the rows are this
+    coordinate's), else nothing (a data- or tensor-parallel step's model
+    runs whole on its rows)."""
+    if mesh is None or not model.config.encoder.seq_axis:
+        return None
+    return one_data_coordinate(mesh)
+
+
+def global_terms(state: TrainState, terms: torch.Tensor, mesh: Optional[Mesh],
+                 n_seq: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the flat gradient, the loss terms) summed in one all-reduce over
+    the mesh's 'data' group, or with ``n_seq`` > 1 seq ranks over every
+    rank of the mesh (module docstring); this rank's own when that is
+    one rank.  Consumes the parameters' ``.grad``."""
     group, _, ranks = axis_of(mesh, "data")
+    if n_seq > 1:
+        group, ranks = mesh.group, len(mesh.ranks)
     if ranks == 1:
         return AdamL2.flat_grad(state), terms
     buf = AdamL2.flat_grad(state, terms.detach())
@@ -324,19 +360,24 @@ def global_terms(state: TrainState, terms: torch.Tensor, mesh: Optional[Mesh]
 def train_loss(model: Detector, tcfg: TrainConfig, wav: torch.Tensor, labels: torch.Tensor,
                valid: torch.Tensor, generator: torch.Generator,
                class_weights: Optional[torch.Tensor] = None, data_group=None,
-               layerdrop_generator: Optional[torch.Generator] = None
+               layerdrop_generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, cls_loss, the model's outputs) of the training forward on
     float audio ``wav``: weighted NLL at ``tcfg.loss_weights`` (or
     ``class_weights``, the same on the device) over the ``valid`` rows,
     plus ``tcfg.sae_weight`` times the SAE loss, plus with ``use_cpc``
     ``tcfg.cpc_weight`` times the CPC loss.  With ``data_group``, this
-    rank's shares of them (module docstring)."""
+    rank's shares of them; with a ``mesh`` for the model's ``seq_axis``
+    (this data coordinate's rows), its shares of the mesh's (module
+    docstring)."""
     compute_cpc = model.config.use_cpc
-    out = model(wav, train=True, generator=generator, compute_cpc=compute_cpc,
-                data_group=data_group, layerdrop_generator=layerdrop_generator)
+    out = model(wav, _model_mesh(model, mesh), train=True, generator=generator,
+                compute_cpc=compute_cpc, data_group=data_group,
+                layerdrop_generator=layerdrop_generator)
     weights = tcfg.loss_weights if class_weights is None else class_weights
-    cls = weighted_nll(out["log_probs"], labels, weights, valid, group=data_group)
+    cls = weighted_nll(out["log_probs"], labels, weights, valid,
+                       group=data_group) / seq_ranks(model, mesh)
     loss = total_loss(cls, out["sae_loss"], tcfg.sae_weight, out["cpc_loss"],
                       tcfg.cpc_weight if compute_cpc else 0.0)
     return loss, cls, out
@@ -352,12 +393,15 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
     valid rows the argmax gets right) and finite, all on the device.  Inputs already on
     the device are used as they are.  ``mesh`` (every rank of its 'data'
     axis calls the step with its own rows, all the same number) makes it
-    the global batch's step (module docstring); None is one rank's."""
+    the global batch's step, and with a 'seq' axis for the model's
+    ``seq_axis`` a sequence-parallel one, the seq ranks of a data
+    coordinate handed its rows (module docstring); None is one rank's."""
     dev = resolve_device(device)
     tcfg = cfg.train
     opt = make_optimizer(tcfg.lr, tcfg.weight_decay)
     class_weights = torch.tensor(tcfg.loss_weights, dtype=torch.float32, device=dev)
     data_group = axis_of(mesh, "data")[0]
+    n_seq = seq_ranks(model, mesh)
 
     def step(state: TrainState, wav, labels, valid, base_seed: int):
         w = dequantize_wire(to_device(wav, dev))
@@ -366,10 +410,10 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
         state.calls += 1
         model.zero_grad(set_to_none=True)
         loss, cls, out = train_loss(model, tcfg, w, y, ok, gen, class_weights, data_group,
-                                    ld_gen)
+                                    ld_gen, mesh)
         loss.backward()
         g, terms = global_terms(state, torch.stack(
-            [loss, cls, out["sae_loss"], out["cpc_loss"]]).detach(), mesh)
+            [loss, cls, out["sae_loss"], out["cpc_loss"]]).detach(), mesh, n_seq)
         finite = torch.isfinite(terms[0])
         opt.update(state, g, finite)
         metrics = {
@@ -386,18 +430,24 @@ def make_train_step(model: Detector, cfg: ExperimentConfig,
     return step
 
 
-def make_eval_step(model: Detector, device: DeviceLike = "cuda") -> Callable:
+def make_eval_step(model: Detector, device: DeviceLike = "cuda",
+                   mesh: Optional[Mesh] = None) -> Callable:
     """(wav [B, S] on the wire, numpy or tensor) -> dict of tensors on
     ``device``: score [B], log_probs [B, 2], sae_loss [], and
     sae_loss_per_example [B] when the model has an SAE.  Runs under
     ``torch.inference_mode``; results are left on the device, so the
-    caller decides when to wait for them."""
+    caller decides when to wait for them.  With ``mesh`` and a model
+    built with ``sp_model_config`` it runs sequence-parallel, each rank
+    handed its data coordinate's rows as the train step is, and returns
+    every one of those rows' results on every seq rank."""
     dev = resolve_device(device)
+    view = _model_mesh(model, mesh)
 
     def step(wav) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             w = wav if torch.is_tensor(wav) else torch.from_numpy(np.ascontiguousarray(wav))
-            out = model(dequantize_wire(w.to(dev)))
+            w = dequantize_wire(w.to(dev))
+            out = model(w, view)
             res = {
                 "score": out["score"],
                 "log_probs": out["log_probs"],
@@ -405,8 +455,16 @@ def make_eval_step(model: Detector, device: DeviceLike = "cuda") -> Callable:
             }
             if "recon" in out:
                 # per-example MSE, so padded tail rows can be masked exactly
-                diff = out["recon"] - out["features"]
-                res["sae_loss_per_example"] = torch.mean(torch.square(diff), dim=(1, 2))
+                sq = torch.square(out["recon"] - out["features"])
+                shard = model.encoder.shard_for(w, view)
+                if shard is None:
+                    res["sae_loss_per_example"] = torch.mean(sq, dim=(1, 2))
+                else:  # the features may be this rank's frames
+                    sq = sq.sum(dim=(1, 2))
+                    if model.sae.row_parallel:
+                        sq = shard.sum_frames(sq)
+                    res["sae_loss_per_example"] = sq / (shard.frames
+                                                        * out["features"].shape[-1])
         return res
 
     return step

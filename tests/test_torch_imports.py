@@ -52,6 +52,10 @@ ANALYSIS_MODULES = ("sls_tpu_torch.analysis.temporal", "sls_tpu_torch.analysis.d
                     "sls_tpu_torch.analysis.attribution", "sls_tpu_torch.analysis.visualize",
                     "sls_tpu_torch.cli.analyze", "sls_tpu_torch.cli.report")
 
+# the last slice's modules: the training runners and the parity tools
+RUN_MODULES = ("sls_tpu_torch.cli.autotrain", "sls_tpu_torch.cli.sweep",
+               "sls_tpu_torch.cli.parity_kit", "sls_tpu_torch.encoder.parity")
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sls_tpu", "pandas", "sklearn", "msgpack")
 _BLOCKED_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|sls_tpu|pandas|sklearn|msgpack)\b(?!_torch)", re.M)
@@ -82,6 +86,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(FAMILY_MODULES) <= names
     assert set(ENTRY_MODULES) <= names
     assert set(ANALYSIS_MODULES) <= names
+    assert set(RUN_MODULES) <= names
 
 
 def test_analysis_modules_import_without_matplotlib():
@@ -105,6 +110,29 @@ def test_long_clip_modules_are_checked():
     assert set(FAMILY_MODULES) <= checked
     assert set(ENTRY_MODULES) <= checked
     assert set(ANALYSIS_MODULES) <= checked
+    assert set(RUN_MODULES) <= checked
+
+
+def test_transformers_only_in_the_parity_checks_hf_branch():
+    """``transformers`` (which the card's machine may lack) is imported in
+    one place: inside ``encoder/parity.py``'s HF reference, and every
+    module imports without it."""
+    where = [(p, m.group(1)) for p in PORT_FILES for m in re.finditer(
+        r"^(\s*)(?:import|from)\s+transformers\b", p.read_text(), re.M)]
+    assert [str(p.relative_to(ROOT)) for p, _ in where] == ["sls_tpu_torch/encoder/parity.py"]
+    assert where[0][1]  # indented: inside a function, not at import time
+    text = (ROOT / "sls_tpu_torch" / "encoder" / "parity.py").read_text()
+    branch = text[text.index("def _hf_forward"):]
+    branch = branch[:branch.index("\ndef ")]
+    assert "from transformers import" in branch
+    code = ("import sys\n"
+            "sys.modules['transformers'] = None\n"
+            "import importlib, pkgutil, sls_tpu_torch\n"
+            "for m in pkgutil.walk_packages(sls_tpu_torch.__path__, 'sls_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("line", ["import pandas as pd", "from sklearn.metrics import roc_curve",

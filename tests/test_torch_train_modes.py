@@ -177,6 +177,9 @@ def test_train_refusals():
     model = Detector(_cfg(), device="cpu")
     with pytest.raises(ValueError, match="generator"):
         model(_wav(), train=True)
+    # sequence parallelism trains (tests/test_torch_sp_train.py), on its mesh alone
     sp = Detector(_cfg(seq_axis="seq"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="seq_axis"):
         sp.encoder(_wav(), train=True, generator=torch.Generator())
+    with pytest.raises(ValueError, match="needs the mesh"):
+        sp(_wav(), train=True, generator=torch.Generator())
