@@ -11,7 +11,8 @@ Decoding and the repeat-tile crop run on loader threads (FLAC in one
 native call a batch, ``data/flac.py``); augmentation runs on the device,
 and ``train/steps.py::to_device`` uploads.  A corrupt file decodes to a
 zero row, which is valid and scored, so score files stay complete; a
-missing file raises.
+missing file raises.  Building a batch is the span ``sls.load``
+(``train/profiling.py``), keyed by its first utterance id.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 
 from sls_tpu_torch.data.audio import DEFAULT_CUT, load_audio, pad_or_tile
 from sls_tpu_torch.data.mulaw import mulaw_encode, mulaw_from_int16
+from sls_tpu_torch.train.profiling import span
 
 PathLike = Union[str, Path]
 
@@ -163,25 +165,26 @@ class BatchLoader:
         from sls_tpu_torch.data.flac import decode_batch
 
         lo = batch_idx * self.batch_size
-        sel = order[lo: lo + self.batch_size]
-        valid = np.ones(self.batch_size, bool)
-        if len(sel) < self.batch_size:  # static shapes: repeat the tail
-            valid[len(sel):] = False
-            sel = (np.resize(sel, self.batch_size) if len(sel)
-                   else np.zeros(self.batch_size, np.int64))
-        paths = [self.index.paths[i] for i in sel]
-        if all_flac and self.wire_dtype == "mulaw":
-            wavs = mulaw_from_int16(decode_batch(paths, self.cut, n_threads=decode_threads,
-                                                 dtype="int16"))
-        elif all_flac:
-            wavs = decode_batch(paths, self.cut, n_threads=decode_threads,
-                                dtype=self.wire_dtype)
-        else:
-            wavs = to_wire(np.stack([_decode_one(p, self.cut) for p in paths]),
-                           self.wire_dtype)
-        return Batch(wav=wavs, utt_ids=[self.index.utt_ids[i] for i in sel],
-                     labels=None if self.index.labels is None else self.index.labels[sel],
-                     valid=valid)
+        with span("sls.load", self.index.utt_ids[order[lo]]):
+            sel = order[lo: lo + self.batch_size]
+            valid = np.ones(self.batch_size, bool)
+            if len(sel) < self.batch_size:  # static shapes: repeat the tail
+                valid[len(sel):] = False
+                sel = (np.resize(sel, self.batch_size) if len(sel)
+                       else np.zeros(self.batch_size, np.int64))
+            paths = [self.index.paths[i] for i in sel]
+            if all_flac and self.wire_dtype == "mulaw":
+                wavs = mulaw_from_int16(decode_batch(paths, self.cut, n_threads=decode_threads,
+                                                     dtype="int16"))
+            elif all_flac:
+                wavs = decode_batch(paths, self.cut, n_threads=decode_threads,
+                                    dtype=self.wire_dtype)
+            else:
+                wavs = to_wire(np.stack([_decode_one(p, self.cut) for p in paths]),
+                               self.wire_dtype)
+            return Batch(wav=wavs, utt_ids=[self.index.utt_ids[i] for i in sel],
+                         labels=None if self.index.labels is None else self.index.labels[sel],
+                         valid=valid)
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         """The batches of one epoch, in order.  A consumer that stops
@@ -288,15 +291,17 @@ class ArrayLoader:
             np.random.default_rng((self.seed, epoch)).shuffle(order)
         bs = self.batch_size
         for lo in range(0, len(order), bs):
-            sel = order[lo : lo + bs]
-            valid = np.ones(bs, bool)
-            if len(sel) < bs:
-                valid[len(sel):] = False
-                reps = int(np.ceil(bs / len(sel)))
-                sel = np.tile(sel, reps)[:bs]
-            yield Batch(
-                wav=self.wavs[sel],
-                utt_ids=[self.utt_ids[i] for i in sel],
-                labels=None if self.labels is None else self.labels[sel],
-                valid=valid,
-            )
+            with span("sls.load", self.utt_ids[order[lo]]):
+                sel = order[lo : lo + bs]
+                valid = np.ones(bs, bool)
+                if len(sel) < bs:
+                    valid[len(sel):] = False
+                    reps = int(np.ceil(bs / len(sel)))
+                    sel = np.tile(sel, reps)[:bs]
+                batch = Batch(
+                    wav=self.wavs[sel],
+                    utt_ids=[self.utt_ids[i] for i in sel],
+                    labels=None if self.labels is None else self.labels[sel],
+                    valid=valid,
+                )
+            yield batch

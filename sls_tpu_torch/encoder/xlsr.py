@@ -93,6 +93,7 @@ from sls_tpu_torch.kernels.frontend import (
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.parallel.tensor import column_linear, cut_dropout, row_linear
 from sls_tpu_torch.quant.int8 import int8_dot
+from sls_tpu_torch.train.profiling import span
 
 
 def _fp32_group_norm_per_channel(x, scale, bias, eps=1e-5):
@@ -463,7 +464,10 @@ class XLSREncoder(nn.Module):
         once and also needs for what follows the encoder.  ``train`` takes
         the training routes, with every dropout mask from ``generator``
         (required then, on the encoder's device) and every layerdrop draw
-        from ``layerdrop_generator`` (default ``generator``)."""
+        from ``layerdrop_generator`` (default ``generator``).  Spans
+        (``train/profiling.py``): ``sls.frontend`` from the conv extractor
+        through the pos-conv (and the encoder LayerNorm in post-LN mode),
+        ``sls.layers`` the layer stack and the final LayerNorm."""
         cfg = self.config
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout and layerdrop")
@@ -474,25 +478,27 @@ class XLSREncoder(nn.Module):
                              "not go together: pass shard=shard_for(wav, mesh)")
         if shard is not None:
             wav = shard.take_rows(wav)
-        feats = self.post_extract_norm(self.feature_extractor(wav, train))
-        x = dropout(self.post_extract_proj(feats), cfg.dropout, gen)
-        x = x + self.pos_conv(x)
-        if not cfg.layer_norm_first:
-            x = self.encoder_layer_norm(x)
-        x = dropout(x, cfg.dropout, gen)
-        if shard is not None:
-            # sequence parallelism starts here: the O(T) front-end above
-            # ran on the whole clip; the O(T^2) layer stack runs on this
-            # rank's frames
-            x = shard.take_frames(x)
+        with span("sls.frontend"):
+            feats = self.post_extract_norm(self.feature_extractor(wav, train))
+            x = dropout(self.post_extract_proj(feats), cfg.dropout, gen)
+            x = x + self.pos_conv(x)
+            if not cfg.layer_norm_first:
+                x = self.encoder_layer_norm(x)
+            x = dropout(x, cfg.dropout, gen)
+            if shard is not None:
+                # sequence parallelism starts here: the O(T) front-end above
+                # ran on the whole clip; the O(T^2) layer stack runs on this
+                # rank's frames
+                x = shard.take_frames(x)
         hidden_states: List[torch.Tensor] = []
-        for layer in self.layers:
-            x = (layer(x, shard) if gen is None
-                 else self._train_layer(layer, x, shard, gen, ld_gen))
-            if return_hidden_states:
-                hidden_states.append(x)
-        if cfg.layer_norm_first:
-            x = self.encoder_layer_norm(x)
+        with span("sls.layers"):
+            for layer in self.layers:
+                x = (layer(x, shard) if gen is None
+                     else self._train_layer(layer, x, shard, gen, ld_gen))
+                if return_hidden_states:
+                    hidden_states.append(x)
+            if cfg.layer_norm_first:
+                x = self.encoder_layer_norm(x)
         if return_hidden_states:
             return x, hidden_states
         return x

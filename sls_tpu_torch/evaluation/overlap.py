@@ -35,6 +35,7 @@ from sls_tpu_torch.device import DeviceLike, resolve_device
 from sls_tpu_torch.metrics.eer import compute_eer
 from sls_tpu_torch.parallel.sequence import sp_scoring_fn
 from sls_tpu_torch.scores.writer import log_probs_to_scores
+from sls_tpu_torch.train.profiling import keyed, span
 from sls_tpu_torch.train.steps import dequantize_wire
 
 _AGGREGATES = {"mean": np.mean, "min": np.min, "max": np.max}
@@ -54,9 +55,13 @@ def _to_device(wav, dev: torch.device) -> torch.Tensor:
 
 def _log_probs(model, rows: np.ndarray, dev: torch.device, fwd=None) -> torch.Tensor:
     """log_probs [n, 2] of float32 waveform rows, left in flight, through
-    ``fwd`` (default: ``model.score``)."""
+    ``fwd`` (default: ``model.score``); spans ``sls.upload`` and
+    ``sls.dispatch``."""
     with torch.inference_mode():
-        return (fwd or model.score)(_to_device(rows.astype(np.float32, copy=False), dev))
+        with span("sls.upload"):
+            wav = _to_device(rows.astype(np.float32, copy=False), dev)
+        with span("sls.dispatch"):
+            return (fwd or model.score)(wav)
 
 
 def _tile_rows(rows: np.ndarray, batch_size: int) -> np.ndarray:
@@ -314,11 +319,17 @@ def score_utterances_unwindowed(model, audio_iter, enc_cfg,
     mesh must iterate the same clips in the same order (the ranks meet in
     collectives inside each forward); every rank yields the same scores.
 
-    Yields (utt_id, score, bucket frame count) in input order."""
+    Yields (utt_id, score, bucket frame count) in input order.  Spans
+    (``train/profiling.py``), keyed by the utterance id: ``sls.tile``,
+    ``sls.upload``, ``sls.dispatch``, ``sls.fetch``."""
     dev = resolve_device(device)
     fwd = sp_scoring_fn(model, sp_mesh) if sp_mesh is not None else None
     buckets = length_buckets(enc_cfg, t_targets)
     for utt_id, wav in audio_iter:
-        rows, t_bucket = unwindowed_batch(wav, buckets)
-        scores = log_probs_to_scores(_log_probs(model, rows, dev, fwd))
+        with keyed(utt_id):
+            with span("sls.tile"):
+                rows, t_bucket = unwindowed_batch(wav, buckets)
+            log_probs = _log_probs(model, rows, dev, fwd)
+            with span("sls.fetch"):
+                scores = log_probs_to_scores(log_probs)
         yield utt_id, float(scores.mean()), t_bucket

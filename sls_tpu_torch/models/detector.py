@@ -15,7 +15,9 @@ never do, as in the reference.
 
 ``forward`` returns the reference's dict.  ``score`` computes only the
 log-probs and skips the decode, which the JAX serving step gets from
-XLA's dead-code elimination.
+XLA's dead-code elimination.  Both open the spans ``sls.sae`` (the SAE's
+encode, and in ``forward`` its decode and loss) and ``sls.head`` (the
+classifier) of ``train/profiling.py``, inside the encoder's own.
 
 The mode is an argument, as in the reference: ``forward(wav,
 train=True, generator=g)`` takes the encoder's training routes and
@@ -72,6 +74,7 @@ from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.sae.cpc import CPCHead
 from sls_tpu_torch.sae.sparsify import aggregate_windows_mean
 from sls_tpu_torch.sae.topk import TopKSAE, reconstruction_loss
+from sls_tpu_torch.train.profiling import span
 
 
 class Detector(nn.Module):
@@ -153,19 +156,21 @@ class Detector(nn.Module):
         out: Dict[str, torch.Tensor] = {"features": feats32}
         sae_loss = cpc_loss = zero
         if cfg.use_sae:
-            codes = self.sae.encode(feats32)
-            recon = self.sae.decode(codes)
-            if shard is None:
-                sae_loss = reconstruction_loss(recon, feats32, ranks)
-            elif train:  # this rank's share of the mesh's mean
-                sq = torch.square(recon.float() - feats32).sum()
-                count = shard.rows * shard.frames * feats32.shape[-1] * ranks
-                sae_loss = sq / (count if frames is not None else count * copies)
-            else:  # the mean over every row and frame, from this rank's sum
-                sq = torch.square(recon - feats32).sum()
-                if frames is not None:
-                    sq = shard.sum_frames(sq)
-                sae_loss = shard.sum_rows(sq) / (shard.rows * shard.frames * feats32.shape[-1])
+            with span("sls.sae"):
+                codes = self.sae.encode(feats32)
+                recon = self.sae.decode(codes)
+                if shard is None:
+                    sae_loss = reconstruction_loss(recon, feats32, ranks)
+                elif train:  # this rank's share of the mesh's mean
+                    sq = torch.square(recon.float() - feats32).sum()
+                    count = shard.rows * shard.frames * feats32.shape[-1] * ranks
+                    sae_loss = sq / (count if frames is not None else count * copies)
+                else:  # the mean over every row and frame, from this rank's sum
+                    sq = torch.square(recon - feats32).sum()
+                    if frames is not None:
+                        sq = shard.sum_frames(sq)
+                    sae_loss = shard.sum_rows(sq) / (shard.rows * shard.frames
+                                                     * feats32.shape[-1])
             out["codes"] = codes
             out["recon"] = recon
             cls_in = codes if cfg.use_sparse_features else recon
@@ -176,9 +181,10 @@ class Detector(nn.Module):
                 out["window_features"] = windows
         else:
             cls_in = feats32
-        log_probs = self.classifier(cls_in, frames, generator if train else None)
-        if shard is not None:
-            log_probs = shard.gather_rows(log_probs)
+        with span("sls.head"):
+            log_probs = self.classifier(cls_in, frames, generator if train else None)
+            if shard is not None:
+                log_probs = shard.gather_rows(log_probs)
         out["log_probs"] = log_probs
         out["score"] = torch.exp(log_probs[:, 1])
         out["sae_loss"] = sae_loss
@@ -192,10 +198,12 @@ class Detector(nn.Module):
         feats32, shard, frames = self._encode(wav, mesh)
         cls_in = feats32
         if cfg.use_sae:
-            codes = self.sae.encode(feats32)
-            cls_in = codes if cfg.use_sparse_features else self.sae.decode(codes)
-        log_probs = self.classifier(cls_in, frames)
-        return log_probs if shard is None else shard.gather_rows(log_probs)
+            with span("sls.sae"):
+                codes = self.sae.encode(feats32)
+                cls_in = codes if cfg.use_sparse_features else self.sae.decode(codes)
+        with span("sls.head"):
+            log_probs = self.classifier(cls_in, frames)
+            return log_probs if shard is None else shard.gather_rows(log_probs)
 
     def encode_sae(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
         """fp32 encoder features [B, T, D] and sparse SAE codes [B, T, M],

@@ -643,7 +643,9 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path],
 
     Depth-2 pipeline: batch N is fetched from the device (and written)
     only after batches N+1 and N+2 are queued, so host batching, device
-    compute and score writing overlap."""
+    compute and score writing overlap.  Spans (``train/profiling.py``):
+    ``sls.fetch`` and ``sls.write`` a batch, each batch's keyed by its
+    first utterance id, which the eval step's spans take too."""
     index, count, writes = part if part is not None else (None, None, True)
     n = 0
     with ScoreWriter(dist.part_path(out_path, index, count) if writes else os.devnull) as writer:
@@ -652,12 +654,15 @@ def produce_scores(eval_step: Callable, loader, out_path: Union[str, Path],
         def flush(item) -> None:
             nonlocal n
             utt_ids, valid, out = item
-            score = log_probs_to_scores(out["log_probs"])  # waits for the device
-            writer.write_batch([u for u, ok in zip(utt_ids, valid) if ok], score[valid])
+            with profiling.span("sls.fetch", utt_ids[0]):
+                score = log_probs_to_scores(out["log_probs"])  # waits for the device
+            with profiling.span("sls.write", utt_ids[0]):
+                writer.write_batch([u for u, ok in zip(utt_ids, valid) if ok], score[valid])
             n += int(valid.sum()) if writes else 0
 
         for batch in loader.epoch(0):
-            out = eval_step(batch.wav)
+            with profiling.keyed(batch.utt_ids[0]):
+                out = eval_step(batch.wav)
             pending.append((list(batch.utt_ids), np.asarray(batch.valid, bool), out))
             if len(pending) > 2:
                 flush(pending.pop(0))

@@ -72,6 +72,7 @@ from sls_tpu_torch.models.detector import Detector, total_loss
 from sls_tpu_torch.parallel.distributed import to_device
 from sls_tpu_torch.parallel.mesh import Mesh, axis_of, one_data_coordinate
 from sls_tpu_torch.train.loss import weighted_nll
+from sls_tpu_torch.train.profiling import span
 
 _LN256 = 5.545177444479562  # log(256), mu=255 companding
 
@@ -439,32 +440,36 @@ def make_eval_step(model: Detector, device: DeviceLike = "cuda",
     caller decides when to wait for them.  With ``mesh`` and a model
     built with ``sp_model_config`` it runs sequence-parallel, each rank
     handed its data coordinate's rows as the train step is, and returns
-    every one of those rows' results on every seq rank."""
+    every one of those rows' results on every seq rank.  Spans (recording
+    on, ``train/profiling.py``): ``sls.upload`` for the copy to the device
+    and the wire's decode, ``sls.dispatch`` for the model and its loss rows."""
     dev = resolve_device(device)
     view = _model_mesh(model, mesh)
 
     def step(wav) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            w = wav if torch.is_tensor(wav) else torch.from_numpy(np.ascontiguousarray(wav))
-            w = dequantize_wire(w.to(dev))
-            out = model(w, view)
-            res = {
-                "score": out["score"],
-                "log_probs": out["log_probs"],
-                "sae_loss": out["sae_loss"],
-            }
-            if "recon" in out:
-                # per-example MSE, so padded tail rows can be masked exactly
-                sq = torch.square(out["recon"] - out["features"])
-                shard = model.encoder.shard_for(w, view)
-                if shard is None:
-                    res["sae_loss_per_example"] = torch.mean(sq, dim=(1, 2))
-                else:  # the features may be this rank's frames
-                    sq = sq.sum(dim=(1, 2))
-                    if model.sae.row_parallel:
-                        sq = shard.sum_frames(sq)
-                    res["sae_loss_per_example"] = sq / (shard.frames
-                                                        * out["features"].shape[-1])
+            with span("sls.upload"):
+                w = wav if torch.is_tensor(wav) else torch.from_numpy(np.ascontiguousarray(wav))
+                w = dequantize_wire(w.to(dev))
+            with span("sls.dispatch"):
+                out = model(w, view)
+                res = {
+                    "score": out["score"],
+                    "log_probs": out["log_probs"],
+                    "sae_loss": out["sae_loss"],
+                }
+                if "recon" in out:
+                    # per-example MSE, so padded tail rows can be masked exactly
+                    sq = torch.square(out["recon"] - out["features"])
+                    shard = model.encoder.shard_for(w, view)
+                    if shard is None:
+                        res["sae_loss_per_example"] = torch.mean(sq, dim=(1, 2))
+                    else:  # the features may be this rank's frames
+                        sq = sq.sum(dim=(1, 2))
+                        if model.sae.row_parallel:
+                            sq = shard.sum_frames(sq)
+                        res["sae_loss_per_example"] = sq / (shard.frames
+                                                            * out["features"].shape[-1])
         return res
 
     return step
