@@ -36,9 +36,11 @@ Phases:
      over batches of 36 synthetic utterances on the int16 wire; launch
      counters are zeroed just before and read just after, and each
      kernel of the path must have launched once per batch and no other
-     kernel at all; the kernel path is held against the plain versions
-     end to end on a small input; utts/s of the eval step and of the
-     score() path;
+     kernel at all (frontend_tail_fused included: on a card every eval
+     forward of the 512-wide front-end takes it, whatever
+     fused_frontend says; train steps never do); the kernel path is
+     held against the plain versions end to end on a small input;
+     utts/s of the eval step and of the score() path;
   4. serving: a BatchingEngine over build_scorer_from_params answers a
      partial batch and more than one batch, each score equal to the
      offline score() of the same audio at the same batch shape;
@@ -49,17 +51,21 @@ Phases:
      score_utterances_unwindowed over clips of 4, 40, 90 and 150 s
      (buckets T 256, 2560, 5120 and 5120 in two chunks), with
      flash_attention_long launched once per layer at T >= 2560 and never
-     below; held against the same weights on the einsum route
-     (flash_long_t=0); ms per forward and audio-seconds per second at
-     T 2560 and 5120; score_full_utterance, score_utterances_streamed and
-     BatchingEngine.score_long over the same clips;
+     below, frontend_tail_fused once a forward; held against the same
+     weights on the einsum route (flash_long_t=0); ms per forward and
+     audio-seconds per second at T 2560 and 5120; score_full_utterance,
+     score_utterances_streamed and BatchingEngine.score_long over the
+     same clips;
   7. the fused_attention=True flagship, as phases 3 and 4, on the
      flagship's weights: fused_attention launched once per layer and
      batch, log-probs held against the default path's;
-  8. the fused_frontend=True flagship, as phase 7: frontend_tail_fused
-     launched once per batch (and never on another path), log-probs held
-     against the default path's; then one T 5120 unwindowed forward on
-     each front-end route, with its ms and peak device memory;
+  8. the fused_frontend=True flagship, as phase 7 (on a card the same
+     route as the default's): frontend_tail_fused launched once per
+     batch, log-probs held against the default path's; then one T 5120
+     unwindowed forward of the default model on each front-end route
+     (the unfused one through feature_extractor.tail), with its ms and
+     peak device memory, the default's launching frontend_tail_fused
+     once and the unfused one never;
   9. the int8 serving flagship (int8_serving, scope "ffn": bench.py's
      serving config), as phases 3 and 4, held to the reference's own
      bounds against the default path (per-frame encoder cosine > 0.99,
@@ -71,7 +77,9 @@ Phases:
      through score_utterances_unwindowed(sp_mesh=sp_mesh(4)); every rank
      must give the same scores, within ROUTE_TOL of the single-process
      scores, with sp_flash_attention_long launched once per layer and
-     forward at T >= 2560 on every rank and no other kernel at all; the
+     forward at T >= 2560 on every rank, frontend_tail_fused once a
+     forward (the front-end runs on the whole clip on every rank) and no
+     other kernel at all; the
      150 s clip (two rows) again on a dp2 x sp2 mesh; the gathered
      encoder output at T 2560 held to ROUTE_ENVELOPE; ms per forward and
      per all-gather, which are of ranks time-sharing one card;
@@ -348,16 +356,28 @@ FRONTEND_KERNELS = ("frontend_tail_fused",)
 KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS
 
 
+# what an eval forward launches on a card beside its SAE and attention
+# kernels: the front-end tail (the encoder's route rule, fused_frontend
+# or not); a train step never
+EVAL_FRONTEND = {"frontend_tail_fused": 1}
+
+
+def eval_launches(per_forward: dict, forwards: int) -> dict:
+    """``forwards`` eval forwards' launches on a card: ``per_forward``'s
+    kernels (each count a forward) and the front-end tail once each."""
+    return {n: c * forwards for n, c in {**per_forward, **EVAL_FRONTEND}.items()}
+
+
 def path_kernels(layers: int) -> dict:
-    """Each batch path's launches per batch by kernel; every other kernel
-    never."""
-    sae = {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}
+    """Each batch path's launches per batch by kernel on a card; every
+    other kernel never."""
+    sae = {"sae_encode_topk_fused": 1, "sae_decode_fused": 1, **EVAL_FRONTEND}
     return {
         "flagship": sae,
         "window_overlap": {"sae_encode_fused": 1, "window_vote_fused": 1,
-                           "sae_decode_fused": 1},
+                           "sae_decode_fused": 1, **EVAL_FRONTEND},
         "fused_attention": {**sae, "fused_attention": layers},
-        "fused_frontend": {**sae, "frontend_tail_fused": 1},
+        "fused_frontend": sae,
         "int8_ffn": sae,
     }
 
@@ -413,6 +433,18 @@ RANKS_TIMEOUT_S = 420.0  # a multi-process phase that outlasts this is killed an
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextmanager
+def front_end_route(fe, forward):
+    """The conv front-end ``fe`` (a ``ConvFeatureExtractor``) computing
+    ``forward(wav)`` inside the block, whatever the encoder's route rule
+    picks, and its own forward again after."""
+    fe.forward = lambda wav, train=False: forward(wav)
+    try:
+        yield
+    finally:
+        del fe.forward
 
 
 def check(cond: bool, what: str) -> None:
@@ -996,7 +1028,7 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters, parent=None):
     channels-first storage, through a front-end with seeded random
     weights, biases and norm affines.  Also times the unfused route from
     the same conv-0 output (cuDNN convs with their fp32 LN / GELU
-    passes), which this kernel replaces on the fused_frontend path."""
+    passes), which this kernel replaces on every eval path on a card."""
     fe = xlsr.ConvFeatureExtractor(enc_cfg, device)
     g = torch.Generator(device=device).manual_seed(2)
     with torch.no_grad():
@@ -1738,7 +1770,8 @@ def phase_offline(torch, device, exp, model, batch: int, seed: int, counts, zero
         launches = counts()
         if on_card:
             want_only("offline produce_scores from files", launches,
-                      {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+                      eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1},
+                                    n_batches))
         got_ids, got = read_score_file(work / "scores_DF.txt")
         check(written == n_flac and got_ids == ids, "one score line per file, in list order")
         check(bool(np.all(np.isfinite(got))), "every score is finite")
@@ -1969,24 +2002,27 @@ def phase_sls(torch, device, enc_cfg, cut: int, batch: int, wire, wavs, seed: in
     def restore():
         model.load_state_dict(init, strict=True)
 
-    # (a) the eval step at the serving batch: no kernel, throughput, envelope
+    # (a) the eval step at the serving batch: no kernel but the front-end
+    # tail (on a card), throughput, envelope
     step = make_sls_eval_step(model, device=device)
     step(wire[:batch])
     sync(torch, device)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    loader = ArrayLoader(wire, None, batch_size=batch)
     with tempfile.TemporaryDirectory() as tmp:
-        written = produce_scores(step, ArrayLoader(wire, None, batch_size=batch),
-                                 Path(tmp) / "scores.txt")
+        written = produce_scores(step, loader, Path(tmp) / "scores.txt")
         launches = counts()
         ids, scores = read_score_file(Path(tmp) / "scores.txt")
     res["launches"] = launches
     check(written == len(wire) and len(ids) == len(wire), "one SLS score line per utterance")
     check(bool(np.all(np.isfinite(scores)) and np.all((scores >= 0) & (scores <= 1))),
           "every SLS score is finite and in [0, 1]")
-    check(all(c == 0 for c in launches.values()),
-          f"the SLS eval path launches no hand-written kernel: {launches}")
+    want = eval_launches({}, loader.num_batches()) if on_card else {}
+    check(launches == {n: want.get(n, 0) for n in launches},
+          f"the SLS eval path launches no hand-written kernel but the front-end tail, once a "
+          f"batch on a card: {launches}")
     reps = 10 if on_card else 1
     batch_wire = wire[:batch]
     step(batch_wire)
@@ -2136,11 +2172,15 @@ def phase_sls(torch, device, enc_cfg, cut: int, batch: int, wire, wavs, seed: in
         a.init_state()
         zero_counts()
         t0 = time.perf_counter()
+        val_loader = ArrayLoader(*utterances(n_val, seed + 162), batch_size=t_batch)
         a.fit(ArrayLoader(*utterances(n_train, seed + 161), batch_size=t_batch, shuffle=True,
-                          seed=seed),
-              ArrayLoader(*utterances(n_val, seed + 162), batch_size=t_batch), num_epochs=1)
+                          seed=seed), val_loader, num_epochs=1)
         fit_s = time.perf_counter() - t0
-        check(all(c == 0 for c in counts().values()), "SLSTrainer.fit launches no kernel")
+        launched = counts()
+        want = eval_launches({}, val_loader.num_batches()) if on_card else {}
+        check(launched == {n: want.get(n, 0) for n in launched},
+              f"SLSTrainer.fit launches no kernel but the front-end tail, once a validation "
+              f"batch on a card: {launched}")
         rows = csv_rows(work / "a")
         check(len(rows) == 1 and rows[0]["epoch"] == "0", "one SLS CSV row for epoch 0")
         check(all(math.isfinite(float(rows[0][k])) for k in ("train_loss", "val_loss",
@@ -2365,7 +2405,7 @@ def phase_cpc(torch, tk, device, flagship, sae_cfg, batch_, wire, batch: int, se
         hook.remove()
     if on_card:
         want_only("CPC eval step", ev_launches,
-                  {"sae_encode_fused": n_eval, "sae_decode_fused": n_eval})
+                  eval_launches({"sae_encode_fused": 1, "sae_decode_fused": 1}, n_eval))
     check(not calls and all(bool(torch.isfinite(o["log_probs"]).all()) for o in outs),
           "the CPC eval step never runs the CPC head")
     res["eval"] = {"launches": ev_launches, "batches": n_eval}
@@ -2683,7 +2723,8 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
         launches["cli_eval"] = counts()
         if on_card:
             want_only("cli.main --is_eval", launches["cli_eval"],
-                      {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+                      eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1},
+                                    n_batches))
         ids_a, scores_a = read_score_file(out_a)
         check(ids_a == ref_ids == df_ids, "one score line a file, in list order")
         check(np.array_equal(scores_a, ref_scores),
@@ -2756,9 +2797,10 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
         if on_card:
             check(t_buckets == [256, 1280, 2560], f"the clips' buckets {t_buckets}")
             want_only("cli.main --full_utterance", launches["cli_full_utterance"],
-                      {"sae_encode_topk_fused": -(-n_windows // batch)})
+                      eval_launches({"sae_encode_topk_fused": 1}, -(-n_windows // batch)))
             want_only("cli.main --full_utterance --unwindowed", launches["cli_unwindowed"],
-                      {"sae_encode_topk_fused": len(wild_ids), "flash_attention_long": flash})
+                      {**eval_launches({"sae_encode_topk_fused": 1}, len(wild_ids)),
+                       "flash_attention_long": flash})
         # the CLI's windowed scores against score_full_utterance, clip by clip
         full = [ev.score_full_utterance(ref_model, w, window=cut, batch_size=batch,
                                         device=device)["score"] for w in wavs_wild]
@@ -2783,7 +2825,7 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
         if on_card:
             for r, rank in enumerate(ranks):
                 want_only(f"--seq_parallel rank {r}", rank["launches"],
-                          {"sp_flash_attention_long": flash})
+                          {**eval_launches({}, len(wild_ids)), "sp_flash_attention_long": flash})
         launches["cli_seq_parallel"] = ranks[0]["launches"]
         long_res["seq_parallel"] = {"ranks": SP_RANKS, "seconds": sp_s,
                                     "vs_unwindowed_max_abs": d_sp,
@@ -2811,7 +2853,8 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
         vals = min(5, -(-n_dev // train_batch))
         if on_card:
             want_only("cli.main training", launches["cli_train"],
-                      {"sae_encode_topk_fused": steps + vals, "sae_decode_fused": steps + vals})
+                      {"sae_encode_topk_fused": steps + vals, "sae_decode_fused": steps + vals,
+                       "frontend_tail_fused": vals})
         check(run_dir.is_dir() and sorted(p.name for p in train_models.iterdir()) == [tag],
               f"the run directory is <model_dir>/{tag}")
         rows = cli_monitor.read_log(run_dir)
@@ -2849,16 +2892,20 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
             torch.cuda.empty_cache()
         export_res = {}
         wire_batch = to_wire(synthetic_wavs(batch, cut, seed + 19), "int16")
+        # on a card every program's front-end is the frontend_tail op
+        frontend_op = ["frontend_tail"] if on_card else []
         for name, run, extra, want_ops, per_call in (
-                ("flagship", work / "flagship_run", [], ["sae_decode", "sae_encode_topk"],
-                 {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}),
+                ("flagship", work / "flagship_run", [],
+                 frontend_op + ["sae_decode", "sae_encode_topk"],
+                 eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, 1)),
                 ("routes", work / "routes_run", [], ["frontend_tail", "fused_attention",
                                                      "sae_decode", "sae_encode_topk"],
                  {"sae_encode_topk_fused": 1, "sae_decode_fused": 1, "frontend_tail_fused": 1,
                   "fused_attention": cfg18.model.encoder.encoder_layers}),
                 ("window_overlap", work / "window_run", [],
-                 ["sae_decode", "sae_encode", "window_vote"],
-                 {"sae_encode_fused": 1, "window_vote_fused": 1, "sae_decode_fused": 1})):
+                 frontend_op + ["sae_decode", "sae_encode", "window_vote"],
+                 eval_launches({"sae_encode_fused": 1, "window_vote_fused": 1,
+                                "sae_decode_fused": 1}, 1))):
             art = work / f"art_{name}"
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -3059,7 +3106,7 @@ def phase_run_tools(torch, device, weights, cfg18, work: Path, base, batch: int,
           f"cli.parity_kit scores every file as cli.main does on the same weights: {report}")
     if on_card:
         want_only("cli.parity_kit", launches["cli_parity_kit"],
-                  {"sae_encode_topk_fused": n_batches, "sae_decode_fused": n_batches})
+                  eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, n_batches))
     shifted = work / "scores_shifted.txt"
     shifted.write_text("".join(f"{u} {s_ + 1e-2}\n" for u, s_ in zip(ids_a, want)))
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3205,11 +3252,13 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     want_pngs = sorted(f for names in ANALYSIS_FIGURES.values() for f in names) if figures else []
     check(pngs == want_pngs, f"the report's figures {pngs}, want {want_pngs}")
     n = collect_batches(n_report, b_report)
-    encode_only = {"sae_encode_topk_fused": n}
+    encode_only = eval_launches({"sae_encode_topk_fused": 1}, n)
     want = {s: encode_only for s in sections}
-    want["inspect"] = {"sae_encode_topk_fused": 1, "sae_decode_fused": 1}
-    want["overlap"] = {"sae_encode_topk_fused": n, "sae_decode_fused": n}
-    want["compare"] = {"sae_encode_topk_fused": n, "sae_encode_fused": n, "window_vote_fused": n}
+    want["inspect"] = eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, 1)
+    want["overlap"] = eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, n)
+    # both runs' forwards: the flagship's and the window-overlap's
+    want["compare"] = {"sae_encode_topk_fused": n, "sae_encode_fused": n, "window_vote_fused": n,
+                       "frontend_tail_fused": 2 * n}
     if on_card:
         for s in sections:
             want_only(f"cli.report section {s}", per_section[s], want[s])
@@ -3240,7 +3289,7 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     check(all(np.isfinite(attr["ablation"]["mean_prob_drop"])), "finite ablation drops")
     if on_card:
         want_only("cli.analyze attribution", launches["cli_analyze_attribution"],
-                  {"sae_encode_topk_fused": collect_batches(n_cli, b_cli)})
+                  eval_launches({"sae_encode_topk_fused": 1}, collect_batches(n_cli, b_cli)))
     res["attribution_cli"] = {
         "seconds": attr_s, "samples": n_cli, "batch": b_cli,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
@@ -3277,7 +3326,7 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     check((work / "gates_figures" / "layer_gates.png").exists() == figures,
           "gates draws layer_gates.png where matplotlib is installed")
     if on_card:
-        want_only("cli.analyze gates", launches["cli_analyze_gates"], {})
+        want_only("cli.analyze gates", launches["cli_analyze_gates"], eval_launches({}, 1))
     res["gates_cli"] = {"seconds": gates_s, "samples": n_gates,
                         "most_sensitive_layers": gates["most_sensitive_layers"],
                         "launches": launches["cli_analyze_gates"]}
@@ -3733,7 +3782,8 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
             for r in d:
                 want_only("Trainer epoch, one rank", r["launches"],
                           {"sae_encode_topk_fused": steps_a_rank + val_a_rank,
-                           "sae_decode_fused": steps_a_rank + val_a_rank})
+                           "sae_decode_fused": steps_a_rank + val_a_rank,
+                           "frontend_tail_fused": val_a_rank})
         launches_by_path["dp_trainer"] = {n: sum(r["launches"][n] for r in d) for n in KERNELS}
         shutil.rmtree(run)
 
@@ -3813,7 +3863,8 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
     log(f"phase 19 (f) DP serving, {len(devices)} replicas on one card: {json.dumps(rf)}")
     check(diff <= SERVE_TOL, "the DP scorer's scores are the one-replica scorer's on the halves")
     if on_card:
-        want_only("DP serving batch", launched, {"sae_encode_topk_fused": PAR_RANKS})
+        want_only("DP serving batch", launched,
+                  eval_launches({"sae_encode_topk_fused": 1}, PAR_RANKS))
     launches_by_path["dp_serving"] = launched
     del dp_fn, one_fn
     return res, launches_by_path
@@ -4154,7 +4205,7 @@ def main(argv=None) -> int:
         for utt, _, t_bucket, delta in long_out:
             flash = layers if t_bucket >= enc_cfg.flash_long_t else 0
             want = {n: 0 for n in KERNELS}
-            want.update(sae_encode_topk_fused=1, flash_attention_long=flash)
+            want.update(sae_encode_topk_fused=1, flash_attention_long=flash, **EVAL_FRONTEND)
             check(delta == want, f"{utt}: launches {delta}, want {want}")
 
     # the same weights on the reference's einsum route (a config, not a
@@ -4280,37 +4331,43 @@ def main(argv=None) -> int:
     check(ff_model.encoder.feature_extractor._fused_ok(cut),
           "the fused front-end's gate holds at the flagship's cut")
     route_envelope("fused_frontend", ff_model)
-    # one T 5120 unwindowed forward on each front-end route
+    # one T 5120 unwindowed forward of the default model on each front-end
+    # route: the unfused one through feature_extractor.tail, the route the
+    # kernel replaces
+    fe = model.encoder.feature_extractor
+    front_ends = {"unfused": lambda x: fe.tail(fe.level0(x)), "fused": fe.forward}
     rows_, t_bucket = ev.unwindowed_batch(long_clips[2][1], buckets)
     w_long = torch.from_numpy(rows_).to(device)
     ff_long = {"T": t_bucket, "samples": rows_.shape[1]}
     lp_long = {}
-    for route, m in (("unfused", model), ("fused", ff_model)):
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        with torch.inference_mode():
-            lp_long[route] = m.score(w_long)
-        sync(torch, device)
-        ff_long[route] = {"launches": tf.frontend_tail_fused.launches}
-        ff_long[route]["ms_per_forward"] = forward_ms(m, w_long, 3 if on_card else 1)
-        if on_card:
-            ff_long[route]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for route, front_end in front_ends.items():
+        with front_end_route(fe, front_end):
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with torch.inference_mode():
+                lp_long[route] = model.score(w_long)
+            sync(torch, device)
+            ff_long[route] = {"launches": tf.frontend_tail_fused.launches}
+            ff_long[route]["ms_per_forward"] = forward_ms(model, w_long, 3 if on_card else 1)
+            if on_card:
+                ff_long[route]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ff_long["log_probs_max_abs"] = float((lp_long["fused"] - lp_long["unfused"]).abs().max())
     log(f"fused front-end, T {t_bucket} forward on both front-end routes: {json.dumps(ff_long)}")
     check(ff_long["log_probs_max_abs"] <= ROUTE_TOL,
           "long-T log-probs agree across the front-end routes")
     if on_card:
         check(ff_long["unfused"]["launches"] == 0 and ff_long["fused"]["launches"] == 1,
-              "the long-T forward takes the fused route once, and only when it is set")
+              "the default model's long-T eval forward launches the kernel once; its unfused "
+              "route (feature_extractor.tail) never")
         if args.profile:
             fe_ms = {}
-            for route, m in (("unfused", model), ("fused", ff_model)):
-                def front_end(x, m=m):
+            for route, front_end in front_ends.items():
+                def front_end_step(x, front_end=front_end):
                     with torch.inference_mode():
-                        return m.encoder.feature_extractor(x)
-                prof = profile_step(front_end, w)
+                        return front_end(x)
+                prof = profile_step(front_end_step, w)
                 fe_ms[route] = prof["device_ms_per_step"]
                 log(json.dumps({"profile": {"path": f"front_end_{route}", **prof}}))
             results["fused_frontend"]["front_end_device_ms"] = fe_ms
@@ -4395,6 +4452,7 @@ def main(argv=None) -> int:
         for j, clips_ in ((0, base), (1, base[3:])):
             for (utt, _, t_bucket), delta in zip(clips_, rank[j]["per_clip"]):
                 want = {n: 0 for n in KERNELS}
+                want.update(EVAL_FRONTEND)
                 want["sp_flash_attention_long"] = sp_layers(t_bucket, SP_MESHES[j][0])
                 check(delta == want, f"rank {r}, job {j}, {utt}: launches {delta}, want {want}")
     f_sp = torch.from_numpy(ranks[0][2]["features"]).to(device)
@@ -4724,7 +4782,8 @@ def main(argv=None) -> int:
         if on_card:
             want_only("Trainer.fit, one epoch", launches,
                       {"sae_encode_topk_fused": fit_steps + val_batches,
-                       "sae_decode_fused": fit_steps + val_batches})
+                       "sae_decode_fused": fit_steps + val_batches,
+                       "frontend_tail_fused": val_batches})
         rows_a = csv_rows(work / "a")
         check(len(rows_a) == 1 and rows_a[0]["epoch"] == "0", "one CSV row for epoch 0")
         check(all(math.isfinite(float(rows_a[0][k])) for k in ("train_loss", "train_cls_loss",

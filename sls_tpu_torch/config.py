@@ -54,11 +54,13 @@ class XLSRConfig:
     dtype: Any = torch.bfloat16
     remat: bool = False
     # fused_attention and flash_long_t (0: off) pick the attention
-    # kernel routes, fused_frontend the fused conv front-end kernel, and
-    # int8_serving / int8_scope the int8 serving matmuls (encoder/xlsr.py,
-    # all eval-only); grouped_conv_einsum the pos-conv as per-tap einsums,
-    # and seq_axis the mesh axis that shards the layer stack's frames
-    # (parallel/sequence.py; the encoder then needs the mesh)
+    # kernel routes, fused_frontend the fused conv front-end off the card
+    # too (on a card the eval front-end takes its kernel whatever it
+    # says), and int8_serving / int8_scope the int8 serving matmuls
+    # (encoder/xlsr.py, all eval-only); grouped_conv_einsum the pos-conv
+    # as per-tap einsums, and seq_axis the mesh axis that shards the
+    # layer stack's frames (parallel/sequence.py; the encoder then needs
+    # the mesh)
     fused_attention: bool = False
     int8_serving: bool = False
     int8_scope: str = "ffn"

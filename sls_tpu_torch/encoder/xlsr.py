@@ -12,10 +12,12 @@ else with ``fused_attention`` set through ``fused_attention`` (both the
 hand-written kernel of ``kernels/attention.py``), else the plain einsum
 path.  With ``seq_axis`` set the layer stack runs sequence-parallel
 (below) and attention goes through ``sp_flash_attention_long`` or the
-einsum path against gathered keys and values.  With ``fused_frontend``
-set, the conv front-end after conv 0 runs through
-``frontend_tail_fused`` (``kernels/frontend.py``) wherever the
-reference's gate holds.  ``int8_serving`` runs fc1/fc2 (and with
+einsum path against gathered keys and values.  At eval the conv front-end
+after conv 0 runs through ``frontend_tail_fused``
+(``kernels/frontend.py``) on a card wherever the reference's shape gate
+holds and the kernel takes the width and dtype, and off the card too
+with ``fused_frontend`` set (its plain version; the reference's default
+route is unfused).  ``int8_serving`` runs fc1/fc2 (and with
 ``int8_scope="all"`` the attention projections) through ``int8_dot``.
 ``grouped_conv_einsum`` computes the pos-conv as per-tap block-diagonal
 einsums on the conv's own weight.
@@ -85,6 +87,8 @@ from sls_tpu_torch.kernels.attention import (
     sp_flash_attention_long,
 )
 from sls_tpu_torch.kernels.frontend import (
+    CHANNELS,
+    DTYPES,
     choose_tile,
     fp32_layer_norm,
     frontend_tail_fused,
@@ -93,7 +97,7 @@ from sls_tpu_torch.kernels.frontend import (
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.parallel.tensor import column_linear, cut_dropout, row_linear
 from sls_tpu_torch.quant.int8 import int8_dot
-from sls_tpu_torch.train.profiling import span
+from sls_tpu_torch.train.profiling import count, span
 
 
 def _fp32_group_norm_per_channel(x, scale, bias, eps=1e-5):
@@ -189,10 +193,11 @@ class ConvFeatureExtractor(nn.Module):
 
     'layer_norm' mode (XLS-R) normalises after every conv; 'default'
     group-norms only the first layer.  Conv 0 runs on cuDNN on both
-    routes; the rest runs unfused (``tail``) or, with ``fused_frontend``
-    where ``_fused_ok`` holds, through ``frontend_tail_fused``, which at
-    bf16 is a different function (fp32 conv sums reach the norm
-    unrounded)."""
+    routes; the rest runs unfused (``tail``) or, where ``_fused_ok``
+    holds, through ``frontend_tail_fused``, which at bf16 is a different
+    function (fp32 conv sums reach the norm unrounded).  Each forward
+    counts its route (``train/profiling.py``): ``sls.frontend.kernel`` or
+    ``sls.frontend.unfused``."""
 
     def __init__(self, config: XLSRConfig, device=None):
         super().__init__()
@@ -218,14 +223,17 @@ class ConvFeatureExtractor(nn.Module):
     def forward(self, wav: torch.Tensor, train: bool = False) -> torch.Tensor:
         # [B, T, C] views over the convs' storage between layers
         h = self.level0(wav)
-        if self._fused_ok(wav.shape[1], train):
+        if self._fused_ok(wav.shape[1], train, on_card=wav.device.type == "cuda"):
+            count("sls.frontend.kernel")
             args, kwargs = self.tail_fused_args()
             return frontend_tail_fused(h, *args, **kwargs)
+        count("sls.frontend.unfused")
         return self.tail(h)
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
         """The unfused route from conv 0's output: norm and GELU of level
-        0, then conv, norm and GELU per layer."""
+        0, then conv, norm and GELU per layer (on a card, the route that
+        parity checks hold the kernel to: ``tail(level0(wav))``)."""
         cfg = self.config
         for i, conv in enumerate(self.conv):
             if i:
@@ -255,14 +263,21 @@ class ConvFeatureExtractor(nn.Module):
         return args, dict(specs=tuple((k, s) for _, k, s in cfg.conv_layers[1:]),
                           approx_gelu=cfg.use_approx_gelu, out_dtype=cfg.dtype)
 
-    def _fused_ok(self, num_samples: int, train: bool = False) -> bool:
-        """The reference's gate (a shape decision, not a fallback): the
-        flag, eval (the kernel has no backward), 'layer_norm' mode, equal
-        widths, at least two layers, and a feasible tiling."""
+    def _fused_ok(self, num_samples: int, train: bool = False, on_card: bool = False) -> bool:
+        """The route rule (a decision on what the forward sees, not a
+        fallback): eval only (the kernel has no backward); on a card
+        (``on_card``) wherever the kernel takes the width and dtype, and
+        anywhere with ``fused_frontend`` (off the card the plain version
+        behind the custom op, as the reference's flag routes); then the
+        reference's shape gate: 'layer_norm' mode, equal widths, at least
+        two layers, and a feasible tiling."""
         cfg = self.config
-        if not cfg.fused_frontend or train or cfg.extractor_mode != "layer_norm":
+        if train or cfg.extractor_mode != "layer_norm":
             return False
         dims = [d for d, _, _ in cfg.conv_layers]
+        kernel_takes = dims[0] == CHANNELS and cfg.dtype in DTYPES
+        if not (cfg.fused_frontend or (on_card and kernel_takes)):
+            return False
         if len(set(dims)) != 1 or len(cfg.conv_layers) < 2:
             return False
         specs = tuple((k, s) for _, k, s in cfg.conv_layers[1:])

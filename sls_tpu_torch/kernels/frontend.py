@@ -25,6 +25,7 @@ encoder imports ``fp32_layer_norm`` from here).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -36,6 +37,7 @@ from sls_tpu_torch.kernels.ops import define
 Spec = Tuple[int, int]  # (kernel, stride) of one tail conv layer
 
 CHANNELS = 512  # the width the CUDA kernel takes (XLS-R's)
+DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes it takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +64,7 @@ def required_input(frames: int, specs: Sequence[Spec]) -> int:
     return m
 
 
+@functools.lru_cache(maxsize=256)
 def choose_tile(
     t_out: int,
     n0: int,
@@ -75,7 +78,10 @@ def choose_tile(
     tiling, or None when that tiling cannot work.  The port keeps it as
     the fused route's gate, so that both packages take the same route:
     feasible iff the conv-0 output covers the last tile's 8-row-aligned
-    halo read, with the scratch closest to ``target_bytes``."""
+    halo read, with the scratch closest to ``target_bytes``.  Cached
+    (``specs`` a tuple of pairs): the encoder's route rule asks it on
+    every eval forward, and its search walks every frame count up to
+    t_out (~0.5 ms of host at T 5120)."""
     total_stride = 1
     for _, s in specs:
         total_stride *= s
@@ -160,7 +166,7 @@ def _frontend_cuda(h0, weights, bias_stack, ln_scale, ln_bias, specs, approx_gel
     B, n0, c = h0.shape
     if c != CHANNELS:
         raise ValueError(f"the kernel takes {CHANNELS} channels, got {c}")
-    if cdt not in (torch.bfloat16, torch.float32):
+    if cdt not in DTYPES:
         raise TypeError(f"the kernel takes bfloat16 or float32, got {cdt}")
     n_layers = len(specs) + 1
     for t, name, shape in ((bias_stack, "bias_stack", (n_layers - 1, c)),

@@ -76,13 +76,16 @@ def sp_model_config(model_cfg, axis: str = "seq"):
     """ModelConfig adjusted for sequence-parallel execution.
 
     Sets ``encoder.seq_axis`` and clears ``encoder.fused_frontend`` and
-    ``sae.use_pallas``, as the reference does.  There the cleared flags
+    ``sae.use_pallas``, as the reference does, where the cleared flags
     are a limit of its compiler (a Pallas call does not shard through
-    it); in the port they keep parity with the reference's routes, since
-    at bf16 the kernel routes are other roundings of the same functions.
-    The long-T attention kernel stays on at eval: the encoder runs it per
-    strip (``sp_flash_attention_long``) where the layout divides evenly;
-    the train route never calls it."""
+    it).  In the port the cleared ``use_pallas`` keeps the SAE on the
+    reference's plain route; the cleared ``fused_frontend`` only keeps the
+    CPU's front-end on the reference's route, since on a card the eval
+    front-end takes its kernel whatever the flag says (it runs on the
+    whole clip on every rank, before the cut).  The long-T attention
+    kernel stays on at eval: the encoder runs it per strip
+    (``sp_flash_attention_long``) where the layout divides evenly; the
+    train route never calls it."""
     enc = model_cfg.encoder
     if enc.seq_axis != axis or enc.fused_frontend:
         model_cfg = dataclasses.replace(

@@ -3,8 +3,9 @@ helpers, the plain version of ``frontend_tail_fused`` against the Pallas
 kernel (interpret mode on the CPU, as ``tests/test_frontend_kernel.py``
 runs it), the wrapper's checks, the fused ``ConvFeatureExtractor`` and
 ``XLSREncoder`` against the JAX modules on shared weights (the same
-route taken on both sides), and (on a card) the CUDA kernel against its
-plain version.
+route taken on both sides), the route rule and its counter, and (on a
+card) the CUDA kernel against its plain version and the default
+encoder's route.
 
 The JAX side is imported inside fixtures and tests, so that on a machine
 with a card and no JAX the CUDA tests still run:
@@ -356,6 +357,57 @@ def test_fused_encoder_bf16_within_reference_envelope(encoder_case):
     assert _rel(out, ref["bfloat16"]) <= 2.0 * envelope
 
 
+# -- (e) the route rule: the kernel at eval on a card by default ------------------
+
+RULE_SAMPLES = {"feasible": 64600, "infeasible": 2000}  # XLS-R topology: T 201, T 6
+RULE_CONFIGS = {  # (width, dtype): the kernel takes the first alone
+    "xlsr": (512, torch.bfloat16), "narrow": (32, torch.bfloat16),
+    "float16": (512, torch.float16)}
+
+
+@pytest.mark.parametrize("length", list(RULE_SAMPLES))
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("on_card", [False, True], ids=["cpu", "card"])
+@pytest.mark.parametrize("flag", [False, True], ids=["default", "fused_frontend"])
+@pytest.mark.parametrize("kind", list(RULE_CONFIGS))
+def test_route_rule(kind, flag, on_card, train, length):
+    """Eval with a feasible shape on a card takes the kernel whatever the
+    flag (where the kernel takes the width and dtype); off the card only
+    with the flag; never under train or at an infeasible shape."""
+    from sls_tpu_torch.encoder.xlsr import ConvFeatureExtractor
+
+    width, dtype = RULE_CONFIGS[kind]
+    cfg = tcfg.XLSRConfig(conv_layers=tuple((width, k, s) for _, k, s in XLSR_LAYERS),
+                          dtype=dtype, fused_frontend=flag)
+    fe = ConvFeatureExtractor(cfg, device="meta")
+    want = (not train and length == "feasible"
+            and (flag or (on_card and kind == "xlsr")))
+    assert fe._fused_ok(RULE_SAMPLES[length], train, on_card=on_card) == want
+    if not on_card:
+        assert fe._fused_ok(RULE_SAMPLES[length], train) == want  # the keyword's default
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["default", "fused_frontend"])
+def test_forward_counts_its_route(flag):
+    """One CPU forward of the encoder under recording counts its front-end
+    route once: unfused at the default config, the kernel route (its plain
+    version here) with the flag."""
+    from sls_tpu_torch.encoder.xlsr import XLSREncoder
+    from sls_tpu_torch.train import profiling
+
+    enc = XLSREncoder(tcfg.tiny_xlsr_config(conv_layers=FUSED_TINY, fused_frontend=flag),
+                      device="cpu")
+    wav = torch.randn(2, 6405, generator=torch.Generator().manual_seed(9))
+    with torch.inference_mode(), profiling.recording() as rec:
+        enc(wav)
+    route = "sls.frontend.kernel" if flag else "sls.frontend.unfused"
+    assert {k: v for k, v in rec.counts.items() if k.startswith("sls.frontend")} == {route: 1}
+    assert [s.name for s in rec.spans] == ["sls.frontend", "sls.layers"]
+    with torch.inference_mode():
+        enc(wav)  # recording off: nothing is held
+    assert rec.counts == {route: 1}
+
+
 # -- (f) on a card: the kernel against its plain version -------------------------
 
 
@@ -459,6 +511,25 @@ def test_kernel_rejects_other_widths(cuda):
         tf.frontend_tail_fused(h0, ws, z[:3], z, z, specs=specs, approx_gelu=True)
 
 
+def _unfused_frontend(enc):
+    """``enc`` with its front-end on the unfused route (``tail``), which
+    an eval forward on a card otherwise leaves for the kernel."""
+    fe = enc.feature_extractor
+    fe.forward = lambda wav, train=False: fe.tail(fe.level0(wav))
+    return enc
+
+
+def _assert_within_envelope(out, ref, f32):
+    """Two different bf16 functions: ``out`` within 1.5x of the unfused
+    route's own bf16 error against fp32 from fp32, and within 2x of it from
+    the unfused route ``ref``."""
+    envelope = float(torch.linalg.vector_norm(ref - f32) / torch.linalg.vector_norm(f32))
+    assert float(torch.linalg.vector_norm(out - f32) / torch.linalg.vector_norm(f32)) <= (
+        1.5 * envelope)
+    assert float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(f32)) <= (
+        2.0 * envelope)
+
+
 @pytest.mark.cuda
 def test_fused_encoder_on_card_matches_unfused_route(cuda):
     """A bf16 encoder with XLS-R's 512-wide front-end through the kernel,
@@ -475,7 +546,7 @@ def test_fused_encoder_on_card_matches_unfused_route(cuda):
     def sharing(**kw):
         m = XLSREncoder(dataclasses.replace(cfg, **kw), device=cuda)
         m.load_state_dict(enc.state_dict())
-        return m
+        return _unfused_frontend(m)
 
     unfused = sharing(fused_frontend=False)
     truth = sharing(fused_frontend=False, dtype=torch.float32, approx_gelu=True)
@@ -484,8 +555,40 @@ def test_fused_encoder_on_card_matches_unfused_route(cuda):
     with torch.inference_mode():
         out, ref, f32 = (m(wav).float() for m in (enc, unfused, truth))
     assert tf.frontend_tail_fused.launches == before + 1
-    envelope = float(torch.linalg.vector_norm(ref - f32) / torch.linalg.vector_norm(f32))
-    assert float(torch.linalg.vector_norm(out - f32) / torch.linalg.vector_norm(f32)) <= (
-        1.5 * envelope)
-    assert float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(f32)) <= (
-        2.0 * envelope)
+    _assert_within_envelope(out, ref, f32)
+
+
+@pytest.mark.cuda
+def test_default_encoder_on_card_takes_the_kernel(cuda):
+    """The default encoder config (``fused_frontend`` off) at eval on a
+    card: row 8 launched once a forward at the scoring cut (4 rows) and at
+    the T 2560 bucket's length, none under ``train``, and its front-end
+    within the envelope above of the unfused route (``tail``)."""
+    from sls_tpu_torch.encoder.xlsr import ConvFeatureExtractor, XLSREncoder, init_weights_
+
+    cfg = tcfg.XLSRConfig()
+    enc = XLSREncoder(cfg, device=cuda)
+    init_weights_(enc, torch.Generator(device=cuda).manual_seed(0))
+    fe = enc.feature_extractor
+    fe32 = ConvFeatureExtractor(dataclasses.replace(cfg, dtype=torch.float32, approx_gelu=True),
+                                cuda)
+    fe32.load_state_dict(fe.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for rows, samples in ((4, 64600), (1, length_buckets(cfg, t_targets=(2560,))[2560])):
+        wav = torch.randn(rows, samples, device=cuda, generator=g) * 0.1
+        before = tf.frontend_tail_fused.launches
+        with torch.inference_mode():
+            enc(wav)
+        torch.cuda.synchronize()
+        assert tf.frontend_tail_fused.launches == before + 1, samples
+        with torch.inference_mode():
+            out = fe(wav).float()
+            ref = fe.tail(fe.level0(wav)).float()
+            f32 = fe32.tail(fe32.level0(wav))
+        assert out.shape == ref.shape == (rows, cfg.num_frames(samples), 512)
+        _assert_within_envelope(out, ref, f32)
+    wav = torch.randn(4, 64600, device=cuda, generator=g) * 0.1
+    before = tf.frontend_tail_fused.launches
+    with torch.no_grad():
+        enc(wav, train=True, generator=torch.Generator(device=cuda).manual_seed(2))
+    assert tf.frontend_tail_fused.launches == before
