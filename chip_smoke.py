@@ -29,7 +29,13 @@ Phases:
      5) also logged with the bytes its design moves (halo chunks
      included), and its streamed form (M 8192 at window 8, window 32 at
      M 4096, M 32768) held bit-equal to the plain version and timed,
-     beside the parent's kernel with ``--parent``;
+     beside the parent's kernel with ``--parent``; kernel row 6's biased
+     form (WavLM's gated relative-position bias) at [1, 5120 and 2560,
+     1024] on the table and gates the encoder builds from a WavLM-Large
+     config, against its plain version and its emulation at a tolerance
+     that the bias dropped, or its gate held at 1, exceeds, timed beside
+     its plain version and row 6 on the same inputs (at most 1.5x row
+     6's time at T 5120);
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -55,7 +61,15 @@ Phases:
      weights on the einsum route (flash_long_t=0); ms per forward and
      audio-seconds per second at T 2560 and 5120; score_full_utterance,
      score_utterances_streamed and BatchingEngine.score_long over the
-     same clips;
+     same clips; (b) a WavLM-Large Detector (seeded, no conv bias, its
+     bias table at the benchmark cell's std) over the 40-s and 90-s
+     clips, launch counters zeroed just before: flash_attention_long_relpos
+     once a layer (24 a forward) and no flash_attention_long, the route
+     counters sls.attention.relpos_kernel at every layer call and one
+     sls.relpos table a forward, log-probs against its einsum route
+     within ROUTE_TOL and the encoder output at T 2560 within that
+     route's bf16 envelope of fp32, as phase 6; ms a forward on both
+     routes;
   7. the fused_attention=True flagship, as phases 3 and 4, on the
      flagship's weights: fused_attention launched once per layer and
      batch, log-probs held against the default path's;
@@ -325,6 +339,14 @@ E2E_TOL = 1e-3         # log-probs through kernels vs plain versions
 SERVE_TOL = 1e-4       # served vs offline P(bonafide) at the same batch shape
 ATTN_REL_TOL = 1e-2    # of max|plain|: bf16 p rounded either side of a near-tie
 ROUTE_TOL = 2e-2       # long-T log-probs, attention kernel route vs the einsum route
+# Kernel row 6's biased form (WavLM's gated relative-position bias): the
+# bias table drawn at the std the benchmark's WavLM cell draws it
+# (perfbench/families/wavlm_topk_sae.py; no trained table has checked
+# it), where dropping the bias or its gate moves the output far beyond
+# ATTN_REL_TOL; the kernel at most RELPOS_TIME_RATIO times row 6's time on
+# the same q, k, v at the long bucket
+WAVLM_TABLE_STD = 4.0
+RELPOS_TIME_RATIO = 1.5
 # Against the einsum route at bf16, the kernel routes differ by the bf16
 # noise of a 24-layer encoder: the einsum route's own error against the
 # same weights in fp32 is the envelope.  A kernel route must lie within
@@ -351,7 +373,7 @@ WINDOW = 8             # the window-overlap variant's window (SAEConfig default)
 SAE_KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
                "window_vote_fused", "sae_decode_fused")
 ATTN_KERNELS = ("flash_attention_long", "sp_flash_attention_long", "fused_attention",
-                "fused_attention_heads")
+                "fused_attention_heads", "flash_attention_long_relpos")
 FRONTEND_KERNELS = ("frontend_tail_fused",)
 KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS
 
@@ -387,7 +409,7 @@ OWN_KERNELS = ("cast_x_bf16_kernel", "cast_w_bf16_kernel", "encode_bf16_wgmma_ke
                "topk_radix_select_kernel", "split_x_kernel", "split_w_kernel",
                "encode_tf32x3_kernel", "window_vote_kernel",
                "decode_stream_kernel", "attention_short_kernel", "attention_long_kernel",
-               "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
+               "attention_long_relpos_kernel", "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
                "frontend_conv_wgmma_kernel")
 ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
@@ -1000,6 +1022,91 @@ def phase_attention(torch, ta, device, long_shape, short_shape, iters):
     for row in rows:
         row["kernel_ms"] = row["ms"]
     return rows
+
+
+def phase_attention_relpos(torch, ta, xlsr, wavlm_cfg, device, lengths, iters):
+    """Kernel row 6's biased form, ``flash_attention_long_relpos`` (WavLM's
+    gated relative-position bias), against its plain version and its
+    emulation at each T of ``lengths`` ([1, T, C] bf16), on the table and
+    gate the encoder's own code builds from ``wavlm_cfg``: layer 0's bias
+    table (drawn at WAVLM_TABLE_STD) at every distance's bucket, one
+    layer's gate on a random input, ``flat`` as the encoder passes it.
+    The tolerance must see the bias: the plain version with the bias
+    dropped, and with the gate held at 1, each lie beyond it.  Timed
+    beside its plain version and beside row 6 (``flash_attention_long``)
+    on the same q, k, v; the row is the first length's, each length a
+    case."""
+    bf16 = torch.bfloat16
+    c, h = wavlm_cfg.embed_dim, wavlm_cfg.num_heads
+    g = torch.Generator(device=device).manual_seed(2)
+    attn = xlsr.SelfAttention(wavlm_cfg, device, bias_table=True)
+    xlsr.init_weights_(attn, g)
+    with torch.no_grad():
+        attn.relative_attention_bias.weight.normal_(0.0, WAVLM_TABLE_STD, generator=g)
+    cases = []
+    for t in lengths:
+        q, k, v, x = [(torch.randn(1, t, c, device=device, generator=g) * 0.5).to(bf16)
+                      for _ in range(4)]
+        with torch.no_grad():
+            table, gate = attn.relpos_table(t), attn.relpos_gate(x)
+
+        def kernel():
+            return ta.flash_attention_long_relpos(q, k, v, gate, table, h,
+                                                  flat=wavlm_cfg.max_distance)
+
+        def plain():
+            return ta.flash_attention_long_relpos_plain(q, k, v, gate, table, h)
+
+        out = kernel()
+        sync(torch, device)
+        ref = plain()
+        tol = ATTN_REL_TOL * float(ref.float().abs().max())
+        err = float((out.float() - ref.float()).abs().max())
+        emulated = ta.attention_online_emulated(q, k, v, h, gate=gate, table=table)
+        emu_err = float((out.float() - emulated.float()).abs().max())
+        del emulated
+        faults = {
+            "bias_dropped": float((ta.flash_attention_long_plain(q, k, v, h).float()
+                                   - ref.float()).abs().max()),
+            "gate_at_one": float((ta.flash_attention_long_relpos_plain(
+                q, k, v, torch.ones_like(gate), table, h).float() - ref.float()).abs().max())}
+        check(err <= tol, f"flash_attention_long_relpos at T {t} agrees with its plain version")
+        check(emu_err <= tol, f"flash_attention_long_relpos at T {t} agrees with its emulation")
+        check(min(faults.values()) > tol,
+              f"at T {t} the tolerance sees the bias and its gate: {faults}")
+        ops = 4.0 * t * t * c + 2.0 * t * t * h  # q k^T, p v, and the bias's multiply-add
+        bytes_ = 8.0 * t * c + 4.0 * h * t + 4.0 * h * (2 * t - 1)  # q k v o, gate, table
+        bound_ms, by = bound(bytes_, ops, PEAK_BF16_FLOPS)
+        exps = float(h * t * t)
+        case = {
+            "shape": {"B": 1, "T": t, "C": c, "heads": h}, "form": ta.attention_form(t),
+            "max_abs_err": err, "tolerance": tol, "emulation_max_abs_err": emu_err,
+            "elements_beyond_one_bf16_ulp": bf16_ulps_exceeded(torch, out, ref),
+            "faults_max_abs": faults,
+            "ms": timed(torch, kernel, device, iters),
+            "row6_ms": timed(torch, lambda: ta.flash_attention_long(q, k, v, h), device, iters),
+            "plain_ms": timed(torch, plain, device, max(iters // 4, 1)),
+            "device_ms": graph_timed(torch, kernel, device, iters),
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": bytes_,
+            "exponentials": exps, "exp_floor_ms": exps / PEAK_EXP * 1e3}
+        case["ratio_to_row6"] = case["ms"] / case["row6_ms"]
+        log(f"flash_attention_long_relpos {case['shape']} (buckets {wavlm_cfg.num_buckets}, "
+            f"distance {wavlm_cfg.max_distance}): max_abs_err {err:.3e} (tolerance {tol:.3e}), "
+            f"vs emulation {emu_err:.3e}; bias dropped {faults['bias_dropped']:.3e}, gate at 1 "
+            f"{faults['gate_at_one']:.3e}; {case['ms']:.4f} ms ({case['ratio_to_row6']:.3f}x "
+            f"row 6's {case['row6_ms']:.4f}), plain {case['plain_ms']:.4f} ms, from a CUDA "
+            f"graph {case['device_ms']} ms; bound {bound_ms:.4f} ms ({by}), exponentials floor "
+            f"{case['exp_floor_ms']:.4f} ms")
+        cases.append(case)
+        del q, k, v, x, out, ref
+    if device.type == "cuda":
+        check(cases[0]["ratio_to_row6"] <= RELPOS_TIME_RATIO,
+              f"flash_attention_long_relpos within {RELPOS_TIME_RATIO}x row 6's time at T "
+              f"{lengths[0]}")
+    return {"name": "flash_attention_long_relpos", "route": "cuda",
+            "source": "sls_tpu_torch/kernels/csrc/attention.cu",
+            "replaces": "none (WavLM; no TPU kernel)", **cases[0], "kernel_ms": cases[0]["ms"],
+            "cases": cases}
 
 
 def ln0_pass(torch, tf, h0, args, kw):
@@ -3917,6 +4024,7 @@ def main(argv=None) -> int:
     from sls_tpu_torch.scores.writer import log_probs_to_scores, read_score_file
     from sls_tpu_torch.serve.engine import BatchingEngine
     from sls_tpu_torch.serve.scorer import build_scorer_from_params
+    from sls_tpu_torch.train import profiling
     from sls_tpu_torch.train.loop import _PIPELINE_DEPTH as PIPELINE_DEPTH
     from sls_tpu_torch.train.loop import Trainer, epoch_row, produce_scores
     from sls_tpu_torch.train.steps import (
@@ -3960,6 +4068,13 @@ def main(argv=None) -> int:
         attn_long, attn_short = (1, 1024, 256, 4), (batch, 50, 4, 64)
     cfg = C.ModelConfig(encoder=enc_cfg, sae=sae_cfg)
     exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(cut_length=cut))
+    # WavLM-Large (phases 2 and 6 (b)): the flagship's encoder with no conv
+    # bias and the gated relative-position bias; at the tiny size fewer
+    # buckets, so that the log branch runs within its lengths
+    wavlm_cfg = C.WavLMConfig(**{**{f.name: getattr(enc_cfg, f.name)
+                                    for f in dataclasses.fields(enc_cfg)},
+                                 "conv_bias": False},
+                              **({} if on_card else {"num_buckets": 32, "max_distance": 64}))
     frames = enc_cfg.num_frames(cut)
 
     modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
@@ -4008,6 +4123,11 @@ def main(argv=None) -> int:
         f"{attn_short} (short T), bf16")
     rows += phase_attention(torch, ta, device, attn_long, attn_short,
                             iters=20 if on_card else 2)
+    log(f"phase 2: kernel row 6's biased form (WavLM) at [1, T, {wavlm_cfg.embed_dim}], T "
+        f"{attn_long[1]} and {attn_long[1] // 2}, bf16")
+    rows.append(phase_attention_relpos(torch, ta, xlsr, wavlm_cfg, device,
+                                       (attn_long[1], attn_long[1] // 2),
+                                       iters=20 if on_card else 2))
     n_utts = FULL_BATCHES * batch + batch // 5 + 1  # and a short tail batch
     wavs = synthetic_wavs(n_utts, cut, args.seed)
     wire = to_wire(wavs, "int16")
@@ -4286,6 +4406,88 @@ def main(argv=None) -> int:
     check(n_served == n_windows[1] and d_long <= SERVE_TOL,
           "score_long equals score_full_utterance")
     results["long_clip"] = {"launches": long_launches}
+
+    # -- phase 6 (b): WavLM-Large long clips, kernel row 6's biased form ------
+    wavlm_model_cfg = dataclasses.replace(cfg, encoder=wavlm_cfg)
+    wavlm = Detector(wavlm_model_cfg, device=device,
+                     generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+    with torch.no_grad():
+        wavlm.encoder.layers[0].self_attn.relative_attention_bias.weight.normal_(
+            0.0, WAVLM_TABLE_STD, generator=torch.Generator(device=device).manual_seed(args.seed))
+    wavlm_clips = long_clips[1:3]  # one clip a long bucket
+    log(f"phase 6 (b): WavLM ({wavlm_cfg.num_buckets} buckets to distance "
+        f"{wavlm_cfg.max_distance}, no conv bias, table std {WAVLM_TABLE_STD}) unwindowed "
+        f"scoring of {[u for u, _ in wavlm_clips]}")
+    zero_counts()
+    wavlm_out, seen = [], counts()
+    with profiling.recording() as rec:
+        for utt, score, t_bucket in ev.score_utterances_unwindowed(
+                wavlm, iter(wavlm_clips), wavlm_cfg, t_targets=long_targets, device=device):
+            now = counts()
+            wavlm_out.append((utt, score, t_bucket, {n: now[n] - seen[n] for n in now}))
+            seen = now
+    wavlm_launches = counts()
+    route_counts = {n: rec.counts.get(n, 0) for n in ("sls.attention.relpos_kernel",
+                                                      "sls.attention.relpos_dense")}
+    n_tables = sum(1 for sp in rec.spans if sp.name == "sls.relpos")
+    for utt, score, t_bucket, delta in wavlm_out:
+        log(f"  WavLM {utt}: score {score:.6f}, bucket T {t_bucket}, launches {delta}")
+    log(f"  WavLM route counters {route_counts}, sls.relpos spans {n_tables}")
+    check([t for _, _, t, _ in wavlm_out] == list(long_targets[-2:]),
+          "WavLM clips land in the two long buckets")
+    check(all(np.isfinite(sc) and 0 <= sc <= 1 for _, sc, _, _ in wavlm_out),
+          "every WavLM score is finite and in [0, 1]")
+    check(route_counts == {"sls.attention.relpos_kernel": layers * len(wavlm_out),
+                           "sls.attention.relpos_dense": 0} and n_tables == len(wavlm_out),
+          "WavLM: the biased long-T route at every layer call, one table a forward")
+    if on_card:
+        for utt, _, t_bucket, delta in wavlm_out:
+            want = {n: 0 for n in KERNELS}
+            want.update(sae_encode_topk_fused=1, flash_attention_long_relpos=layers,
+                        **EVAL_FRONTEND)
+            check(delta == want, f"WavLM {utt}: launches {delta}, want {want}")
+
+    def wavlm_sharing(**enc_changes):
+        m = Detector(dataclasses.replace(
+            wavlm_model_cfg, encoder=dataclasses.replace(wavlm_cfg, **enc_changes)), device="meta")
+        m.load_state_dict(wavlm.state_dict(), strict=True, assign=True)
+        return m
+
+    # the einsum route with the bias materialized, and in fp32 on that route
+    wavlm_plain = wavlm_sharing(flash_long_t=0)
+    wavlm_fp32 = wavlm_sharing(flash_long_t=0, dtype=torch.float32, approx_gelu=True).encoder
+    wavlm_res = {"launches_by_clip": {u: d for u, _, _, d in wavlm_out},
+                 "route_counters": route_counts, "max_log_prob_diff": 0.0,
+                 "ms_per_forward": {}, "einsum_route_ms_per_forward": {}}
+    with torch.inference_mode():
+        for utt, wav in wavlm_clips:
+            rows_, t_bucket = ev.unwindowed_batch(wav, buckets)
+            w = torch.from_numpy(rows_).to(device)
+            diff = float((wavlm.score(w) - wavlm_plain.score(w)).abs().max())
+            wavlm_res["max_log_prob_diff"] = max(wavlm_res["max_log_prob_diff"], diff)
+            if t_bucket == long_targets[-2]:
+                f_k, f_p = wavlm.encoder(w).float(), wavlm_plain.encoder(w).float()
+                truth = wavlm_fp32(w)
+                wavlm_res["encoder_rel_l2"] = {
+                    "kernel_vs_einsum_route": rel_l2(f_k, f_p),
+                    "kernel_route_vs_fp32": rel_l2(f_k, truth),
+                    "einsum_route_vs_fp32": rel_l2(f_p, truth)}
+                del f_k, f_p, truth
+            wavlm_res["ms_per_forward"][t_bucket] = forward_ms(wavlm, w, 3 if on_card else 1)
+            wavlm_res["einsum_route_ms_per_forward"][t_bucket] = forward_ms(
+                wavlm_plain, w, 3 if on_card else 1)
+    log(f"WavLM long clip: {json.dumps(wavlm_res)}")
+    check(wavlm_res["max_log_prob_diff"] <= ROUTE_TOL,
+          "WavLM long-T log-probs agree with its einsum route")
+    w_l2 = wavlm_res["encoder_rel_l2"]
+    w_envelope = w_l2["einsum_route_vs_fp32"]
+    check(w_l2["kernel_route_vs_fp32"] <= ROUTE_ENVELOPE[0] * w_envelope,
+          "WavLM long-T encoder output is within the einsum route's bf16 envelope of fp32")
+    check(w_l2["kernel_vs_einsum_route"] <= ROUTE_ENVELOPE[1] * w_envelope,
+          "WavLM long-T encoder output agrees with the einsum route within its envelope")
+    long_res["wavlm"] = wavlm_res
+    results["wavlm_long_clip"] = {"launches": wavlm_launches}
+    del wavlm, wavlm_plain, wavlm_fp32
 
     # -- phases 7-9: the flagship's weights on other encoder routes ---------
     encode_topk = (
@@ -4984,7 +5186,7 @@ def main(argv=None) -> int:
         "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "cast_ms", "gemm_ms",
         "select_ms", "ln0_ms", "streamed_form",
         "ln0_channels_first_ms", "parent_ms",
-        "parent_alternation_ms") if key in row}
+        "parent_alternation_ms", "row6_ms", "ratio_to_row6", "faults_max_abs") if key in row}
         for row in rows]
     batch_paths = [label for label in results if "eval_utts_per_s" in results[label]]
     print(json.dumps({"run": {"card": card.replace("\n", "; "), "batch": batch, "layers": layers,

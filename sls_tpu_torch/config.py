@@ -95,6 +95,30 @@ class XLSRConfig:
         return t
 
 
+@dataclass(frozen=True)
+class WavLMConfig(XLSRConfig):
+    """WavLM encoder hyperparameters (WavLM-Large: microsoft/wavlm-large,
+    Chen et al., arXiv:2110.13900): XLS-R's layout plus a gated
+    relative-position bias in every layer's attention, over
+    ``num_buckets`` distance buckets (half a side; exact below a quarter
+    of them, logarithmic up to ``max_distance``).  A subclass, so that
+    ``XLSRConfig``'s fields stay the JAX package's.  The attention routes
+    without a bias input refuse it: sequence parallelism (``seq_axis``,
+    kernel row 7) and ``fused_attention`` (row 9)."""
+
+    num_buckets: int = 320
+    max_distance: int = 800
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.fused_attention:
+            raise ValueError("WavLM: the fused_attention route (kernel row 9) has no "
+                             "relative-position bias; leave fused_attention off")
+        if self.seq_axis:
+            raise ValueError("WavLM: the sequence-parallel route (seq_axis, kernel row 7) has "
+                             "no relative-position bias; leave seq_axis unset")
+
+
 def tiny_xlsr_config(**overrides) -> XLSRConfig:
     """Small config for tests / CPU dry-runs (same topology, tiny dims)."""
     base = dict(
@@ -255,7 +279,10 @@ def config_to_json(cfg: Any) -> str:
 
 def config_from_dict(cls, d: Dict[str, Any]):
     """Rebuild a config dataclass from a JSON dict (inverse of
-    config_to_json, and of the JAX package's)."""
+    config_to_json, and of the JAX package's).  An encoder dict with
+    ``num_buckets`` is a ``WavLMConfig``."""
+    if cls is XLSRConfig and "num_buckets" in d:
+        cls = WavLMConfig
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:

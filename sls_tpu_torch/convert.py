@@ -34,6 +34,12 @@ naming of ``sls_tpu/encoder/convert.py``:
 - ``load_pretrained_encoder``: a pretrained encoder file (``.npz``,
   fairseq or HF ``.pt`` / ``.pth``).
 
+A ``WavLMConfig`` encoder also takes unilm's gated relative-position
+tensors (fairseq naming): each layer's ``grep_linear`` and ``grep_a``
+(stored ``[1, H, 1, 1]``), and layer 0's ``relative_attention_bias``.
+Conv layers without a bias (WavLM-Large's ``conv_bias`` false) have none
+in either naming.
+
 Torch and fairseq layouts agree ([out, in] linears, [out, in/g, K]
 convs), so every loaded tensor equals its source bit for bit, except the
 folded pos-conv.  ``detector_state_to_reference`` and
@@ -57,7 +63,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-from sls_tpu_torch.config import ModelConfig, SAEConfig, XLSRConfig
+from sls_tpu_torch.config import ModelConfig, SAEConfig, WavLMConfig, XLSRConfig
 
 _INDEXED = re.compile(r"^(layer|conv|norm)_(\d+)$")
 _NORM_SCOPES = ("LayerNorm_0", "GroupNorm_0")
@@ -208,6 +214,13 @@ def _encoder_to_torch(s: Mapping, cfg: XLSRConfig, names: Dict[str, str]) -> Dic
         _copy_linear(out, s, f"{src}.{names['fc1']}", f"{dst}.fc1")
         _copy_linear(out, s, f"{src}.{names['fc2']}", f"{dst}.fc2")
         _copy_norm(out, s, f"{src}.final_layer_norm", f"{dst}.final_layer_norm")
+        if isinstance(cfg, WavLMConfig):
+            attn = f"{src}.{names['attn']}"
+            _copy_linear(out, s, f"{attn}.grep_linear", f"{dst}.self_attn.grep_linear")
+            out[f"{dst}.self_attn.grep_a"] = _tensor(s[f"{attn}.grep_a"]).reshape(-1)
+            if i == 0:
+                out[f"{dst}.self_attn.relative_attention_bias.weight"] = _tensor(
+                    s[f"{attn}.relative_attention_bias.weight"])
     _copy_norm(out, s, "encoder.layer_norm", "encoder_layer_norm")
     return out
 
@@ -349,6 +362,12 @@ def _encoder_to_reference(s: Mapping[str, torch.Tensor], enc_cfg: XLSRConfig
             _copy_norm(out, s, f"{src}.{name}", f"{dst}.{name}")
         for name in ("fc1", "fc2"):
             _copy_linear(out, s, f"{src}.{name}", f"{dst}.{name}")
+        if isinstance(enc_cfg, WavLMConfig):
+            _copy_linear(out, s, f"{src}.self_attn.grep_linear", f"{dst}.self_attn.grep_linear")
+            out[f"{dst}.self_attn.grep_a"] = s[f"{src}.self_attn.grep_a"].reshape(1, -1, 1, 1)
+            if i == 0:
+                name = "self_attn.relative_attention_bias.weight"
+                out[f"{dst}.{name}"] = s[f"{src}.{name}"]
     _copy_norm(out, s, "encoder.encoder_layer_norm", f"{fs}encoder.layer_norm")
     return out
 

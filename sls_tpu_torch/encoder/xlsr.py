@@ -22,6 +22,19 @@ route is unfused).  ``int8_serving`` runs fc1/fc2 (and with
 ``grouped_conv_einsum`` computes the pos-conv as per-tap block-diagonal
 einsums on the conv's own weight.
 
+WavLM (``WavLMConfig``; unilm's ``wavlm/modules.py`` at eval) adds a
+gated relative-position bias to every layer's fp32 scores:
+``g[b, h, i] * table[h, j - i + T - 1]``.  The table ``[H, 2T - 1]`` is
+layer 0's ``relative_attention_bias`` at each distance's bucket
+(``relative_position_bucket``), built once a forward (span
+``sls.relpos``) and shared by every layer; each layer's gate comes from
+its own attention input (``SelfAttention.relpos_gate``).  The einsum
+route adds it to the scores (and trains through it); the long-T route
+hands gate and table to ``flash_attention_long_relpos`` (kernel row 6's
+biased form).  Each layer call counts its route:
+``sls.attention.relpos_kernel`` or ``sls.attention.relpos_dense``.  The
+routes without a bias input refuse the config (``WavLMConfig``).
+
 Training (``forward(..., train=True, generator=g)``) takes the routes
 the reference's ``train=True`` takes: the kernel routes (both attention
 kernels, the fused front-end) and int8 are eval-only there, so under
@@ -72,6 +85,7 @@ rank; layerdrop draws one scalar a layer, alike too.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -79,10 +93,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from sls_tpu_torch.config import XLSRConfig
+from sls_tpu_torch.config import WavLMConfig, XLSRConfig
 from sls_tpu_torch.kernels.attention import (
     flash_attention_long,
+    flash_attention_long_relpos,
     fused_attention,
+    relpos_dense,
     sp_block_q,
     sp_flash_attention_long,
 )
@@ -332,13 +348,32 @@ class PositionalConv(nn.Module):
         return acc.reshape(B, T, C) + self.conv.bias.to(dt)
 
 
+def relative_position_bucket(delta: torch.Tensor, num_buckets: int,
+                             max_distance: int) -> torch.Tensor:
+    """WavLM's bucket of each distance ``delta`` = j - i (unilm's
+    bidirectional ``_relative_positions_bucket``, the same operations):
+    half the buckets a side, ``num_buckets // 2`` added for delta > 0;
+    for n = |delta| exact below ``num_buckets // 4``, above it
+    logarithmic up to ``max_distance``, capped at the side's last."""
+    half = num_buckets // 2
+    exact = half // 2
+    n = delta.abs()
+    large = exact + (torch.log(n.float() / exact) / math.log(max_distance / exact)
+                     * (half - exact)).to(torch.long)
+    large = torch.min(large, torch.full_like(large, half - 1))
+    return (delta > 0).to(torch.long) * half + torch.where(n < exact, n, large)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with an fp32 softmax: the attention
     kernel on the long-T and ``fused_attention`` routes at eval, else
     matmuls (the reference's einsum path; no library attention kernel),
-    with dropout on the probabilities under ``train``."""
+    with dropout on the probabilities under ``train``.  Under a
+    ``WavLMConfig`` every layer holds its gate's ``grep_linear`` and
+    ``grep_a``, and the layer with ``bias_table`` (layer 0) the
+    ``relative_attention_bias`` that every layer's bias reads."""
 
-    def __init__(self, config: XLSRConfig, device=None):
+    def __init__(self, config: XLSRConfig, device=None, bias_table: bool = False):
         super().__init__()
         self.config = config
         C, dt = config.embed_dim, config.dtype
@@ -347,14 +382,48 @@ class SelfAttention(nn.Module):
         self.k_proj = Dense(C, C, dt, device, int8)
         self.v_proj = Dense(C, C, dt, device, int8)
         self.out_proj = Dense(C, C, dt, device, int8)
+        if isinstance(config, WavLMConfig):
+            self.grep_linear = Dense(config.head_dim, 8, torch.float32, device)
+            self.grep_a = nn.Parameter(torch.ones(config.num_heads, device=device))
+            if bias_table:
+                self.relative_attention_bias = nn.Embedding(
+                    config.num_buckets, config.num_heads, device=device)
+                self._buckets = {}  # (t, device) -> each distance's bucket there
+
+    def relpos_table(self, t: int) -> torch.Tensor:
+        """[H, 2t - 1] fp32: the bias of each head at each distance
+        j - i = -(t - 1) .. t - 1 (layer 0's, once a forward).  The buckets
+        are worked out on the host, as unilm does, once for each t and
+        device."""
+        cfg, weight = self.config, self.relative_attention_bias.weight
+        bucket = self._buckets.get((t, weight.device))
+        if bucket is None:
+            bucket = relative_position_bucket(torch.arange(1 - t, t), cfg.num_buckets,
+                                              cfg.max_distance).to(weight.device)
+            self._buckets[(t, weight.device)] = bucket
+        return self.relative_attention_bias(bucket).t().contiguous()
+
+    def relpos_gate(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, T] fp32: each query's gate on the bias, from the
+        attention's input x [B, T, C] cut into heads: (a, b) = sigmoid of
+        ``grep_linear``'s 8 outputs summed in two groups of 4, and
+        g = a (b ``grep_a[h]`` - 1) + 2."""
+        B, T, _ = x.shape
+        H, D = self.config.num_heads, self.config.head_dim
+        ab = self.grep_linear(x.float().reshape(B, T, H, D)).reshape(B, T, H, 2, 4).sum(-1)
+        a, b = torch.sigmoid(ab).unbind(-1)
+        return (a * (b * self.grep_a - 1.0) + 2.0).transpose(1, 2).contiguous()
 
     def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                relpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, T, C], or with ``shard`` this rank's frames of it, whose
-        queries then meet every frame's keys and values."""
+        queries then meet every frame's keys and values.  ``relpos``: the
+        bias-by-distance table [H, 2T - 1] of a WavLM forward."""
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.num_heads, cfg.head_dim
+        gate = None if relpos is None else self.relpos_gate(x)
         q, k, v = self.q_proj(x, train), self.k_proj(x, train), self.v_proj(x, train)  # [B, T, C]
         q = q * (D ** -0.5)
         # The kernel routes are eval-only, as the reference's
@@ -374,13 +443,21 @@ class SelfAttention(nn.Module):
         elif not train and cfg.flash_long_t and T >= cfg.flash_long_t and T % 256 == 0:
             # long-T eval (unwindowed full utterances): the [B, H, T, T]
             # scores never reach device memory
+            if relpos is not None:
+                count("sls.attention.relpos_kernel")
+                # beyond max_distance a side's buckets are all its last one
+                return self.out_proj(flash_attention_long_relpos(
+                    q, k, v, gate, relpos, H, flat=cfg.max_distance))
             return self.out_proj(flash_attention_long(q, k, v, H))
         q = q.reshape(B, T, H, D)
         k, v = k.reshape(B, -1, H, D), v.reshape(B, -1, H, D)
         if cfg.fused_attention and shard is None and not train:
             return self.out_proj(fused_attention(q, k, v).reshape(B, T, C))
-        scores = torch.einsum("bthd,bshd->bhts", q, k)
-        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        scores = torch.einsum("bthd,bshd->bhts", q, k).float()
+        if relpos is not None:
+            count("sls.attention.relpos_dense")
+            scores = scores + gate[..., None] * relpos_dense(relpos, T)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         probs = dropout(probs, cfg.attention_dropout, generator, shard, dim=2)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
         return self.out_proj(ctx, train)
@@ -394,12 +471,12 @@ class TransformerLayer(nn.Module):
 
     tp = None
 
-    def __init__(self, config: XLSRConfig, device=None):
+    def __init__(self, config: XLSRConfig, device=None, bias_table: bool = False):
         super().__init__()
         cfg = self.config = config
         if cfg.activation not in ("gelu", "relu"):
             raise ValueError(f"unknown activation {cfg.activation!r}")
-        self.self_attn = SelfAttention(cfg, device)
+        self.self_attn = SelfAttention(cfg, device, bias_table)
         self.self_attn_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
         self.final_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
         self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim, cfg.dtype, device, cfg.int8_serving)
@@ -420,11 +497,12 @@ class TransformerLayer(nn.Module):
         return dropout(row_linear(self.fc2, h, tp), cfg.dropout, gen)
 
     def forward(self, x: torch.Tensor, shard: Optional[SeqShard] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                relpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, gen = self.config, generator
 
         def attn(h):
-            return dropout(self.self_attn(h, shard, train, gen), cfg.dropout, gen, shard)
+            return dropout(self.self_attn(h, shard, train, gen, relpos), cfg.dropout, gen, shard)
 
         if cfg.layer_norm_first:
             x = x + attn(self.self_attn_layer_norm(x))
@@ -450,7 +528,7 @@ class XLSREncoder(nn.Module):
         self.post_extract_proj = Dense(c0, cfg.embed_dim, cfg.dtype, device)
         self.pos_conv = PositionalConv(cfg, device)
         self.layers = nn.ModuleList(
-            TransformerLayer(cfg, device) for _ in range(cfg.encoder_layers))
+            TransformerLayer(cfg, device, bias_table=i == 0) for i in range(cfg.encoder_layers))
         self.encoder_layer_norm = Fp32LayerNorm(cfg.embed_dim, device=device)
 
     def shard_for(self, wav: torch.Tensor, mesh: Optional[Mesh]) -> Optional[SeqShard]:
@@ -482,7 +560,8 @@ class XLSREncoder(nn.Module):
         from ``layerdrop_generator`` (default ``generator``).  Spans
         (``train/profiling.py``): ``sls.frontend`` from the conv extractor
         through the pos-conv (and the encoder LayerNorm in post-LN mode),
-        ``sls.layers`` the layer stack and the final LayerNorm."""
+        ``sls.layers`` the layer stack and the final LayerNorm, and under a
+        ``WavLMConfig`` ``sls.relpos`` the bias table between them."""
         cfg = self.config
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout and layerdrop")
@@ -505,11 +584,15 @@ class XLSREncoder(nn.Module):
                 # ran on the whole clip; the O(T^2) layer stack runs on this
                 # rank's frames
                 x = shard.take_frames(x)
+        relpos = None
+        if isinstance(cfg, WavLMConfig):
+            with span("sls.relpos"):
+                relpos = self.layers[0].self_attn.relpos_table(x.shape[1])
         hidden_states: List[torch.Tensor] = []
         with span("sls.layers"):
             for layer in self.layers:
-                x = (layer(x, shard) if gen is None
-                     else self._train_layer(layer, x, shard, gen, ld_gen))
+                x = (layer(x, shard, relpos=relpos) if gen is None
+                     else self._train_layer(layer, x, shard, gen, ld_gen, relpos))
                 if return_hidden_states:
                     hidden_states.append(x)
             if cfg.layer_norm_first:
@@ -520,7 +603,8 @@ class XLSREncoder(nn.Module):
 
     def _train_layer(self, layer: TransformerLayer, x: torch.Tensor,
                      shard: Optional[SeqShard], gen: torch.Generator,
-                     ld_gen: torch.Generator) -> torch.Tensor:
+                     ld_gen: torch.Generator,
+                     relpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One layer under ``train``: layerdrop as compute-and-select (its
         draw from ``ld_gen``, which may be ``gen``), and with ``remat`` the
         layer checkpointed.  The checkpointed function draws its masks
@@ -540,21 +624,23 @@ class XLSREncoder(nn.Module):
             def run(h):
                 g = torch.Generator(device=h.device)
                 g.set_state(start)
-                out = layer(h, shard, train=True, generator=g)
+                out = layer(h, shard, train=True, generator=g, relpos=relpos)
                 end[:] = [g.get_state()]
                 return out
 
             y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
             gen.set_state(end[0])
         else:
-            y = layer(x, shard, train=True, generator=gen)
+            y = layer(x, shard, train=True, generator=gen, relpos=relpos)
         return y if keep is None else torch.where(keep, y, x)
 
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Seeded random init in the reference's scheme: lecun-scaled normal
-    weights (std 1/sqrt(fan_in)), zero biases, unit LayerNorm scales."""
+    weights (std 1/sqrt(fan_in)), zero biases, unit LayerNorm scales;
+    WavLM's bias table at std 1/sqrt(heads) and its gates' ``grep_a`` at
+    1."""
     for mod in module.modules():
         if isinstance(mod, (Dense, Conv1d)):
             fan_in = mod.weight[0].numel()
@@ -564,3 +650,7 @@ def init_weights_(module: nn.Module, generator: Optional[torch.Generator]) -> No
         elif isinstance(mod, Fp32LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=generator)
+        elif isinstance(mod, SelfAttention) and hasattr(mod, "grep_a"):
+            mod.grep_a.fill_(1.0)

@@ -18,7 +18,12 @@ contracts:
 - ``fused_attention(q, k, v)`` on ``[B, T, H, Dh]``, the
   ``XLSRConfig.fused_attention`` route;
 - ``fused_attention_heads(q, k, v, num_heads, h_blk=2)`` on
-  ``[B, T, C]``, which no path calls (the reference's tests do).
+  ``[B, T, C]``, which no path calls (the reference's tests do);
+- ``flash_attention_long_relpos(q, k, v, gate, table, num_heads)``, the
+  long form with WavLM's gated relative-position bias
+  ``g[b, h, i] * table[h, j - i + T - 1]`` added to the fp32 scores
+  (``attention_long_relpos_kernel``, a symbol of its own); it has no TPU
+  counterpart, as the JAX package runs no WavLM.
 
 q comes pre-scaled by Dh^-0.5.  The CUDA kernel takes bf16 or fp32 at
 Dh 64 and its own q tiles (64 rows a warpgroup), so ``block_q`` and
@@ -65,12 +70,19 @@ def attention_form(t_kv: int) -> str:
 # -- plain versions ---------------------------------------------------------
 
 
-def _attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
-    """softmax(q kᵀ) v per head, in explicit fp32: exact products of the
-    operands summed in fp32 (TF32 must be off, PyTorch's default for
-    matmul), an fp32 softmax, the probabilities rounded to v's dtype,
+def relpos_dense(table: torch.Tensor, t: int) -> torch.Tensor:
+    """A bias-by-distance table [H, 2t - 1] as [H, t, t]: entry (h, i, j)
+    is ``table[h, j - i + t - 1]``."""
+    pos = torch.arange(t, device=table.device)
+    return table[:, pos[None, :] - pos[:, None] + t - 1]
+
+
+def _attention_plain(q, k, v, num_heads: int, bias=None) -> torch.Tensor:
+    """softmax(q kᵀ + bias) v per head, in explicit fp32: exact products
+    of the operands summed in fp32 (TF32 must be off, PyTorch's default
+    for matmul), an fp32 softmax, the probabilities rounded to v's dtype,
     fp32 sums again, and the result cast to q's dtype.  q [B, Tq, C],
-    k and v [B, Tkv, C]."""
+    k and v [B, Tkv, C]; ``bias`` fp32, broadcast to [B, H, Tq, Tkv]."""
     B, Tq, C = q.shape
     Tkv = k.shape[1]
     dh = C // num_heads
@@ -78,7 +90,8 @@ def _attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
     def heads(x, t):
         return x.float().reshape(B, t, num_heads, dh).transpose(1, 2)
 
-    probs = torch.softmax(heads(q, Tq) @ heads(k, Tkv).transpose(-1, -2), dim=-1)
+    scores = heads(q, Tq) @ heads(k, Tkv).transpose(-1, -2)
+    probs = torch.softmax(scores if bias is None else scores + bias, dim=-1)
     ctx = probs.to(v.dtype).float() @ heads(v, Tkv)
     return ctx.transpose(1, 2).reshape(B, Tq, C).to(q.dtype)
 
@@ -86,6 +99,13 @@ def _attention_plain(q, k, v, num_heads: int) -> torch.Tensor:
 def flash_attention_long_plain(q, k, v, num_heads: int) -> torch.Tensor:
     """Plain version of ``flash_attention_long``."""
     return _attention_plain(q, k, v, num_heads)
+
+
+def flash_attention_long_relpos_plain(q, k, v, gate, table, num_heads: int) -> torch.Tensor:
+    """Plain version of ``flash_attention_long_relpos``: the bias
+    materialized as [B, H, T, T]."""
+    return _attention_plain(q, k, v, num_heads,
+                            gate[..., None] * relpos_dense(table, q.shape[1]))
 
 
 def _gather_kv(k, v, group):
@@ -116,16 +136,19 @@ def fused_attention_heads_plain(q, k, v, num_heads: int) -> torch.Tensor:
 
 
 def attention_online_emulated(q, k, v, num_heads: int, block_kv: int = BLOCK_KV,
-                              short_kv: int = SHORT_KV) -> torch.Tensor:
+                              short_kv: int = SHORT_KV, gate=None, table=None) -> torch.Tensor:
     """The bf16 kernel's numerics in plain PyTorch, rounding where it
     rounds.  At Tkv <= ``short_kv`` that is the plain version.  Above, it
     is one pass over ``block_kv``-key tiles in order: per row a running max
     m and sum l in fp32, p~ = exp(s - m) rounded to v's dtype for the
     product with v, the fp32 sum o rescaled by exp(m_old - m_new) as the
-    max moves, and o / l at the end, cast to q's dtype."""
+    max moves, and o / l at the end, cast to q's dtype.  With ``gate`` and
+    ``table`` it is the biased form, which takes the long form at every
+    Tkv: each tile's scores get the bias before the max."""
     B, Tq, C = q.shape
     Tkv = k.shape[1]
-    if Tkv <= short_kv:
+    bias = None if gate is None else gate[..., None] * relpos_dense(table, Tq)
+    if Tkv <= short_kv and bias is None:
         return _attention_plain(q, k, v, num_heads)
     dh = C // num_heads
 
@@ -138,6 +161,8 @@ def attention_online_emulated(q, k, v, num_heads: int, block_kv: int = BLOCK_KV,
     o = torch.zeros(B, num_heads, Tq, dh, device=q.device)
     for j in range(0, Tkv, block_kv):
         s = qh @ kh[:, :, j:j + block_kv].transpose(-1, -2)
+        if bias is not None:
+            s = s + bias[..., j:j + block_kv]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -174,12 +199,16 @@ def sp_block_q(t_local: int, preferred: int = 256, minimum: int = 128) -> Option
 # -- the kernel --------------------------------------------------------------
 
 
-def _attention_cuda(q, k, v, num_heads: int) -> torch.Tensor:
+def _attention_cuda(q, k, v, num_heads: int, gate=None, table=None,
+                    flat: Optional[int] = None) -> torch.Tensor:
     """Launch ``csrc/attention.cu`` on q [B, Tq, C], k and v [B, Tkv, C],
     or on the same memory as [B, T, H, Dh] (``fused_attention`` passes it
-    without views); the output takes q's shape.  The checks read each
-    attribute once: at the T 201 shape the host's share of a call is of
-    the kernel's order."""
+    without views); the output takes q's shape.  With ``gate`` [B, H, T]
+    and ``table`` [H, 2T - 1] (fp32, contiguous; Tq = Tkv = T) the biased
+    form: ``flat``, where given, is a distance from which the table holds
+    one value a side (the kernel then skips its reads on tiles wholly
+    beyond it).  The checks read each attribute once: at the T 201 shape
+    the host's share of a call is of the kernel's order."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     qs, ks = q.shape, k.shape
@@ -207,36 +236,63 @@ def _attention_cuda(q, k, v, num_heads: int) -> torch.Tensor:
         ptrs.append(t.data_ptr())
         if ptrs[-1] % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if gate is not None:
+        if Tq != Tkv:
+            raise ValueError(f"the relative-position bias needs Tq == Tkv; got {Tq}, {Tkv}")
+        for t, name, shape in ((gate, "gate", (B, num_heads, Tq)),
+                               (table, "table", (num_heads, 2 * Tq - 1))):
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous float32 {shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}, expected {device}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or Tq == 0:
         return out
     if Tkv == 0:
         raise ValueError("attention over no keys")
-    args = (*ptrs, out.data_ptr(), B, Tq, Tkv, num_heads, int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    is_bf16 = int(dtype == torch.bfloat16)
+    if gate is None:
+        launch = _launcher("attention_launch")
+        args = (*ptrs, out.data_ptr(), B, Tq, Tkv, num_heads, is_bf16, stream)
+    else:
+        launch = _launcher("attention_relpos_launch")
+        args = (*ptrs, gate.data_ptr(), table.data_ptr(), out.data_ptr(), B, Tq, num_heads,
+                flat if flat is not None else NO_FLAT, is_bf16, stream)
     if device.index == torch.cuda.current_device():
-        err = _launcher()(*args)
+        err = launch(*args)
     else:  # the kernel launches on the current device
         with torch.cuda.device(device):
-            err = _launcher()(*args)
+            err = launch(*args)
     build.check(err, "attention")
     return out
 
 
-def _launcher():
-    """``attention_launch`` of the built library, typed once a process
-    (the short form's kernel takes about 0.05 ms, so the host's share of
-    a call matters)."""
-    fn = _launcher.fn
+NO_FLAT = 1 << 30  # a ``flat`` distance no tile reaches
+
+
+# the entries of the built library and their arguments
+_ARGTYPES = {"attention_launch": [_P] * 4 + [_I] * 5 + [_P],
+             "attention_relpos_launch": [_P] * 6 + [_I] * 5 + [_P]}
+
+
+def _launcher(name: str):
+    """Entry ``name`` of the built library, typed once a process (the
+    short form's kernel takes about 0.05 ms, so the host's share of a
+    call matters)."""
+    fn = _launcher.fns.get(name)
     if fn is None:
-        fn = build.load("attention").attention_launch
-        fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        fn = getattr(build.load("attention"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _launcher.fn = fn
+        _launcher.fns[name] = fn
     return fn
 
 
-_launcher.fn = None
+_launcher.fns = {}
 
 
 # -- wrappers ---------------------------------------------------------------
@@ -258,6 +314,29 @@ def flash_attention_long(q, k, v, num_heads: int, block_q: int = 256) -> torch.T
 
 
 flash_attention_long.launches = 0
+
+
+def flash_attention_long_relpos(q, k, v, gate, table, num_heads: int,
+                                flat: Optional[int] = None, block_q: int = 256) -> torch.Tensor:
+    """softmax(q kᵀ + g_i · table[h, j − i + T − 1]) v per head: WavLM's
+    gated relative-position bias in the long form.  q [B, T, C]
+    pre-scaled, k and v [B, T, C]; ``gate`` [B, H, T] and ``table``
+    [H, 2T - 1] fp32.  ``flat``: a distance from which the table holds
+    one value a side (the caller's promise; the kernel reads no table
+    entry for a tile wholly beyond it).  Returns [B, T, C] in q's dtype;
+    T must be a multiple of ``block_q``, as for ``flash_attention_long``."""
+    if q.shape[1] % block_q:
+        raise ValueError(f"T={q.shape[1]} not a multiple of block_q={block_q}")
+    if flat is not None and flat < 1:
+        raise ValueError(f"flat={flat}: a distance of at least 1")
+    if q.device.type == "cpu":
+        return flash_attention_long_relpos_plain(q, k, v, gate, table, num_heads)
+    out = _attention_cuda(q, k, v, num_heads, gate, table, flat)
+    build.count_launch(flash_attention_long_relpos)
+    return out
+
+
+flash_attention_long_relpos.launches = 0
 
 
 def sp_flash_attention_long(q, k, v, num_heads: int, group=None,

@@ -76,6 +76,35 @@
 // exp(s - max), far below the bf16 rounding of p that follows.
 // fp32 operands (the reference's fp32 tests; no path) take a SIMT kernel:
 // one query row a thread, K/V tiles broadcast from shared memory.
+//
+// The biased long form, attention_long_relpos_kernel (a symbol of its own,
+// so that a device trace tells it apart), replaces no TPU kernel: the JAX
+// package runs no WavLM.  It computes WavLM's gated relative-position
+// attention (unilm wavlm/modules.py at eval), self-attention at T = Tq =
+// Tkv with, for each (b, h, i, j),
+//
+//     s = q_h . k_h^T + g[b, h, i] * t[h, j - i + T - 1]
+//
+// added in fp32 (one fmaf) before the running max; gate g [B, H, T] and
+// bias-by-distance table t [H, 2T - 1] are fp32.  A materialized bias
+// would be 16 * 5120^2 * 4 B = 1.68 GB a layer at T 5120; the table is
+// 655 KB.  A block's 128 query rows meet one 128-key tile at 255
+// distances, so the producer warp copies the 256 entries from j*128 - q0 -
+// 128 on (cp.async, 8 a lane) into the K stage beside the K tile: its
+// barrier counts the copies' 32 arrivals beside the tile's bytes, and
+// frees the slice with the tile.  A thread's row
+// g + 8 meets at column group jj the entries its row g met at jj - 1, so
+// it reads 34 entries a tile for its 64 scores.  The bias adds T^2 H
+// multiply-adds (419 M at T 5120) on the CUDA cores beside the softmax's
+// as many exponentials, and on the critical path of each tile's softmax:
+// that made the kernel 1.39x row 6's time at T 5120 (PERF.md).  Beyond
+// max_distance (the caller's `flat`) a side of the table holds one value
+// (the side's last bucket), so a tile whose distances all lie beyond it on
+// one side adds a constant g * that value to each row: the online softmax
+// takes it in the row's max instead of in each score (exp(s + c - m) =
+// exp(s - (m - c))), and the tile reads no entry and adds nothing (about
+// 60 % of the tiles at T 5120).  The fp32 kernel takes the same bias
+// directly from global memory.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -97,6 +126,8 @@ constexpr int Q_BYTES = QT * ROW_BYTES;     // 8 KB
 constexpr int KV_BYTES = KT * ROW_BYTES;    // 16 KB
 constexpr float LOG2E = 1.4426950408889634f;
 
+constexpr int TAB_N = 256;                  // table entries a tile's slice (biased form)
+constexpr int TAB_BYTES = TAB_N * 4;
 constexpr int F32_BQ = 64;           // fp32: query rows per block, one a thread
 constexpr int F32_BKV = 32;          // fp32: keys per shared-memory tile
 
@@ -306,6 +337,38 @@ attention_short_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // -- long form: Tkv > 256, one pass over a ring of K and V tiles -------------
 
+// 4 bytes of global memory into shared memory, asynchronously
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// s += g_r * t[j - i] over one tile from its staged slice: this thread's
+// row g at column 8jj + 2tq + e reads tab[base + 8jj + e], row g + 8 the
+// entry 8 lower, which row g read at jj - 1
+__device__ __forceinline__ void add_relpos(float* s, const float* tab, int base, float g0,
+                                           float g1) {
+  float prev0 = tab[base - 8], prev1 = tab[base - 7];
+#pragma unroll
+  for (int jj = 0; jj < KT / 8; ++jj) {
+    const float t0 = tab[base + 8 * jj], t1 = tab[base + 8 * jj + 1];
+    s[4 * jj] = fmaf(g0, t0, s[4 * jj]);
+    s[4 * jj + 1] = fmaf(g0, t1, s[4 * jj + 1]);
+    s[4 * jj + 2] = fmaf(g1, prev0, s[4 * jj + 2]);
+    s[4 * jj + 3] = fmaf(g1, prev1, s[4 * jj + 3]);
+    prev0 = t0;
+    prev1 = t1;
+  }
+}
+
+
 // s = q k^T against one 128-key tile (four 16-deep k-steps): one commit group
 __device__ __forceinline__ void issue_qk(float* s, uint32_t q_tile, uint32_t k_tile) {
 #pragma unroll
@@ -324,9 +387,12 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p, uint32_t v
 // keys at or past n_valid of the tile to -inf; then per row (r = 0: g,
 // r = 1: g + 8) the new max m, alpha = 2^((m_old - m) log2e), p~ =
 // 2^(s log2e - m log2e) in place in fp32, and l = l alpha + this thread's
-// share of the row's sum of p~
+// share of the row's sum of p~.  With OFFSET the scores are s + c[r]
+// (a row's constant over the tile) without adding it to each: the max of
+// s is taken against m_old - c[r], and m = that max + c[r]
+template <bool OFFSET>
 __device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* alpha,
-                                               int n_valid, int tq) {
+                                               int n_valid, int tq, const float* c) {
   if (n_valid < KT) {
 #pragma unroll
     for (int i = 0; i < 2 * KT / 4; ++i)
@@ -335,13 +401,15 @@ __device__ __forceinline__ void online_softmax(float* s, float* m, float* l, flo
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     // four partial maxima and sums, for independent chains
-    float mp[4] = {m[r], -INFINITY, -INFINITY, -INFINITY}, sp[4] = {0.f, 0.f, 0.f, 0.f};
+    float mp[4] = {OFFSET ? m[r] - c[r] : m[r], -INFINITY, -INFINITY, -INFINITY};
+    float sp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < KT / 8; ++jj)
       mp[jj & 3] = fmaxf(mp[jj & 3], fmaxf(s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]));
     const float mx = quad_max(fmaxf(fmaxf(mp[0], mp[1]), fmaxf(mp[2], mp[3])));
-    alpha[r] = ex2((m[r] - mx) * LOG2E);
-    m[r] = mx;
+    const float m_new = OFFSET ? mx + c[r] : mx;
+    alpha[r] = ex2((m[r] - m_new) * LOG2E);
+    m[r] = m_new;
     const float mb = -mx * LOG2E;
 #pragma unroll
     for (int jj = 0; jj < KT / 8; ++jj) {
@@ -365,18 +433,51 @@ __device__ __forceinline__ void pack_tile(uint32_t* p, const float* s) {
 }
 
 constexpr int NCONS = 2;  // consumer warpgroups a block: 128 query rows
+constexpr int BQ = NCONS * QT;
+
+// whether the distances of a tile whose first key lies d0 from the
+// block's first row (d0 - (BQ - 1) .. d0 + KT - 1) all lie beyond `flat`
+// on one side
+__device__ __forceinline__ bool far_tile(int d0, int flat) {
+  return d0 - (BQ - 1) >= flat || d0 + KT - 1 <= -flat;
+}
+
+// the bias of such a tile: for a far tile each row's g times that side's
+// far value as the row's offset c (online_softmax's OFFSET); else added to
+// each score from the slice `tab`, c = 0
+__device__ __forceinline__ void add_bias(float* s, float* c, const float* tab, int d0, int flat,
+                                         int base, const float* gq, float far_neg,
+                                         float far_pos) {
+  if (far_tile(d0, flat)) {
+    const float far = d0 > 0 ? far_pos : far_neg;
+    c[0] = gq[0] * far;
+    c[1] = gq[1] * far;
+  } else {
+    c[0] = c[1] = 0.f;
+    add_relpos(s, tab, base, gq[0], gq[1]);
+  }
+}
+
 constexpr int ST = 2;     // ring stages of K and of V
 constexpr int LONG_SMEM = SWIZZLE_ALIGN + NCONS * Q_BYTES + 2 * ST * KV_BYTES;
+constexpr int RELPOS_SMEM = LONG_SMEM + ST * TAB_BYTES;
 
-// NCONS consumer warpgroups of QT query rows each, after one producer
-// warpgroup (warp 0 of it issues every TMA load); one block an SM,
-// launched at 168 registers a thread: the producer drops to 24 and the
-// consumers take 240.
-__global__ void __launch_bounds__(128 * (NCONS + 1), 1)
-attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
-                      int Tq, int Tkv, int C) {
+// the biased form's inputs (unused by the plain form)
+struct RelPos {
+  const float* gate;   // [B, H, T]
+  const float* table;  // [H, 2T - 1]
+  int flat;            // from this distance on, each side of the table holds one value
+};
+
+// The long form's block: NCONS consumer warpgroups of QT query rows each,
+// after one producer warpgroup (warp 0 of it issues every TMA load); one
+// block an SM, launched at 168 registers a thread: the producer drops to
+// 24 and the consumers take 240.  RELPOS adds the bias; the plain form
+// compiles without it.
+template <bool RELPOS>
+__device__ __forceinline__ void long_form(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                          const CUtensorMap* tm_v, bf16* __restrict__ out,
+                                          int Tq, int Tkv, int C, RelPos rp) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 4 * ST];
   uint64_t* q_full = bars;
@@ -387,14 +488,15 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* sq = align_smem(smem_raw);
   uint8_t* sk = sq + NCONS * Q_BYTES;
   uint8_t* sv = sk + ST * KV_BYTES;
+  float* stab = reinterpret_cast<float*>(sv + ST * KV_BYTES);  // RELPOS: ST slices
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * (QT * NCONS);
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
   const int n_tiles = (Tkv + KT - 1) / KT;
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int i = 0; i < ST; ++i) {
-      mbar_init(&k_full[i], 1);
+      mbar_init(&k_full[i], RELPOS ? 1 + 32 : 1);  // RELPOS: the slice's copies too
       mbar_init(&v_full[i], 1);
       mbar_init(&k_empty[i], 4 * NCONS);  // lane 0 of every consumer warp
       mbar_init(&v_empty[i], 4 * NCONS);
@@ -404,21 +506,39 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (wg == 0) {
-    // producer
+    // producer: thread 0 issues every TMA load; under RELPOS its warp also
+    // copies each tile's slice of the table
     regs_dec<24>();
-    if (tid == 0) {
-      mbar_expect_tx(q_full, NCONS * Q_BYTES);
-      for (int c = 0; c < NCONS; ++c)
-        tma_load_3d(sq + c * Q_BYTES, &tm_q, q_full, h * DH, q0 + c * QT, b);
+    if (RELPOS ? tid < 32 : tid == 0) {
+      if (tid == 0) {
+        mbar_expect_tx(q_full, NCONS * Q_BYTES);
+        for (int c = 0; c < NCONS; ++c)
+          tma_load_3d(sq + c * Q_BYTES, tm_q, q_full, h * DH, q0 + c * QT, b);
+      }
+      const int last = (int)gridDim.y * (2 * Tkv - 1) - 1;  // RELPOS: the table's last entry
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % ST;
         const uint32_t ph = (j / ST) & 1;
         mbar_wait(&k_empty[st], ph ^ 1);
-        mbar_expect_tx(&k_full[st], KV_BYTES);
-        tma_load_3d(sk + st * KV_BYTES, &tm_k, &k_full[st], h * DH, j * KT, b);
-        mbar_wait(&v_empty[st], ph ^ 1);
-        mbar_expect_tx(&v_full[st], KV_BYTES);
-        tma_load_3d(sv + st * KV_BYTES, &tm_v, &v_full[st], h * DH, j * KT, b);
+        if (tid == 0) {
+          mbar_expect_tx(&k_full[st], KV_BYTES);
+          tma_load_3d(sk + st * KV_BYTES, tm_k, &k_full[st], h * DH, j * KT, b);
+        }
+        if (RELPOS) {
+          // distances j*KT - q0 - BQ + i of head h, i < TAB_N (an index
+          // past the table, which no score of the tile reads, clamped);
+          // none for a tile that add_bias reads no entry of
+          const int d0 = j * KT - q0, first = h * (2 * Tkv - 1) + d0 - BQ + Tkv - 1;
+          if (!far_tile(d0, rp.flat))
+            for (int i = tid; i < TAB_N; i += 32)
+              cp_async_4(stab + st * TAB_N + i, rp.table + min(max(first + i, 0), last));
+          cp_async_arrive(&k_full[st]);
+        }
+        if (tid == 0) {
+          mbar_wait(&v_empty[st], ph ^ 1);
+          mbar_expect_tx(&v_full[st], KV_BYTES);
+          tma_load_3d(sv + st * KV_BYTES, tm_v, &v_full[st], h * DH, j * KT, b);
+        }
       }
     }
   } else {
@@ -434,6 +554,20 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // RELPOS: this thread's rows' gates, the table's two far values, and
+    // its place in a tile's slice (row g, column 2tq)
+    float gq[2] = {0.f, 0.f}, far_neg = 0.f, far_pos = 0.f, c[2] = {0.f, 0.f};
+    int base = 0;
+    if (RELPOS) {
+      const int row = q0 + cw * QT + warp * 16 + g;
+      const float* gr = rp.gate + ((size_t)b * gridDim.y + h) * Tq;
+      gq[0] = row < Tq ? gr[row] : 0.f;
+      gq[1] = row + 8 < Tq ? gr[row + 8] : 0.f;
+      const float* tr = rp.table + (size_t)h * (2 * Tkv - 1);
+      far_neg = tr[0];
+      far_pos = tr[2 * Tkv - 2];
+      base = BQ - cw * QT - warp * 16 - g + 2 * tq;
+    }
     if (cw == 1) bar_arrive(1, 256);  // warpgroup 0 issues first
     mbar_wait(q_full, 0);
 
@@ -454,8 +588,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
     next_turn(false);
     wg_wait<0>();
     pin<2 * KT / 4>(s);
+    if (RELPOS) add_bias(s, c, stab, -q0, rp.flat, base, gq, far_neg, far_pos);
     if (lane == 0) mbar_arrive(&k_empty[0]);
-    online_softmax(s, m, l, alpha, Tkv, tq);
+    online_softmax<RELPOS>(s, m, l, alpha, Tkv, tq, c);
     pack_tile(p, s);
     for (int j = 1; j < n_tiles; ++j) {
       const int st = j % ST, sp = (j - 1) % ST;
@@ -469,8 +604,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
       next_turn(false);
       wg_wait<1>();
       pin<2 * KT / 4>(s);
+      if (RELPOS)
+        add_bias(s, c, stab + st * TAB_N, j * KT - q0, rp.flat, base, gq, far_neg, far_pos);
       if (lane == 0) mbar_arrive(&k_empty[st]);
-      online_softmax(s, m, l, alpha, Tkv - j * KT, tq);
+      online_softmax<RELPOS>(s, m, l, alpha, Tkv - j * KT, tq, c);
       wg_wait<0>();
       pin<32>(o);
       pin<KT / 4>(p);
@@ -492,12 +629,30 @@ attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+__global__ void __launch_bounds__(128 * (NCONS + 1), 1)
+attention_long_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                      int Tq, int Tkv, int C) {
+  long_form<false>(&tm_q, &tm_k, &tm_v, out, Tq, Tkv, C, RelPos{nullptr, nullptr, 0});
+}
+
+__global__ void __launch_bounds__(128 * (NCONS + 1), 1)
+attention_long_relpos_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                             int T, int C, const float* __restrict__ gate,
+                             const float* __restrict__ table, int flat) {
+  long_form<true>(&tm_q, &tm_k, &tm_v, out, T, T, C, RelPos{gate, table, flat});
+}
+
 // -- fp32 ----------------------------------------------------------------------
 
 __global__ void __launch_bounds__(F32_BQ)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int Tq, int Tkv, int C) {
+                     int Tq, int Tkv, int C, const float* __restrict__ gate,
+                     const float* __restrict__ table) {
   __shared__ __align__(16) float ks[F32_BKV * DH];
   __shared__ __align__(16) float vs[F32_BKV * DH];
   const int tid = threadIdx.x;
@@ -506,6 +661,12 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t b = blockIdx.z;
   const float* kg = k + b * Tkv * C + head;
   const float* vg = v + b * Tkv * C + head;
+  // the bias (gate non-null; Tq = Tkv): g of this row, and tr[key] = t[key - row]
+  const int brow = row < Tq ? row : 0;
+  const float gr = gate != nullptr ? gate[(b * gridDim.y + blockIdx.y) * Tq + brow] : 0.f;
+  const float* tr = gate != nullptr
+                        ? table + (size_t)blockIdx.y * (2 * Tkv - 1) + (Tkv - 1 - brow)
+                        : nullptr;
 
   float qr[DH];
   {
@@ -533,6 +694,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float acc = 0.f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], ks[j * DH + d], acc);
+      if (tr != nullptr && key0 + j < Tkv) acc = fmaf(gr, tr[key0 + j], acc);
       sc[j] = key0 + j < Tkv ? acc : -INFINITY;
     }
   };
@@ -585,6 +747,24 @@ int make_qkv_map(CUtensorMap* map, const void* ptr, int B, int T, int C, int row
   return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box);
 }
 
+int relpos_launch(const void* q, const void* k, const void* v, const float* gate,
+                  const float* table, void* out, int B, int T, int H, int flat,
+                  cudaStream_t stream) {
+  static bool smem_set[MAX_DEVICES] = {};
+  const int C = H * DH;
+  CUtensorMap tq, tk, tv;
+  int res = make_qkv_map(&tq, q, B, T, C, QT);
+  if (res == 0) res = make_qkv_map(&tk, k, B, T, C, KT);
+  if (res == 0) res = make_qkv_map(&tv, v, B, T, C, KT);
+  if (res != 0) return res;
+  const cudaError_t err = allow_smem(attention_long_relpos_kernel, RELPOS_SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BQ - 1) / BQ, H, B);
+  attention_long_relpos_kernel<<<grid, 128 * (NCONS + 1), RELPOS_SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), T, C, gate, table, flat);
+  return cudaGetLastError();
+}
+
 int bf16_launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tkv,
                 int H, cudaStream_t stream) {
   static bool smem_set[2][MAX_DEVICES] = {};
@@ -629,6 +809,27 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v, voi
   dim3 grid((Tq + F32_BQ - 1) / F32_BQ, H, B);
   attention_f32_kernel<<<grid, F32_BQ, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Tq, Tkv, C);
+      static_cast<const float*>(v), static_cast<float*>(out), Tq, Tkv, C, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+// The biased form: q, k, v and out [B, T, H*64] as above, gate [B, H, T]
+// and table [H, 2T - 1] float32, contiguous and 16-byte aligned; from
+// distance `flat` on, each side of the table holds one value (a larger
+// `flat` than T - 1 promises nothing).  bf16 takes
+// attention_long_relpos_kernel at every T, fp32 the SIMT kernel.  Returns
+// as attention_launch.
+extern "C" int attention_relpos_launch(const void* q, const void* k, const void* v,
+                                       const void* gate, const void* table, void* out, int B,
+                                       int T, int H, int flat, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gate);
+  const float* t = static_cast<const float*>(table);
+  if (is_bf16) return relpos_launch(q, k, v, g, t, out, B, T, H, flat, s);
+  const int C = H * DH;
+  dim3 grid((T + F32_BQ - 1) / F32_BQ, H, B);
+  attention_f32_kernel<<<grid, F32_BQ, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), T, T, C, g, t);
   return cudaGetLastError();
 }
