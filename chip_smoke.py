@@ -35,7 +35,15 @@ Phases:
      config, against its plain version and its emulation at a tolerance
      that the bias dropped, or its gate held at 1, exceeds, timed beside
      its plain version and row 6 on the same inputs (at most 1.5x row
-     6's time at T 5120);
+     6's time at T 5120); kernel row 11, the encoder's LayerNorm, at
+     [36*201, 1024], [5120, 1024] and [36*201, 512] bf16 and [36, 4096]
+     fp32 (each width and dtype an eval forward launches) against its
+     plain version (bf16 within one ulp, beyond the fp32 rounding of the
+     two terms an output sums; fp32 within LN_TERMS_TOL), timed beside
+     it, F.layer_norm and its bound; the
+     encoder's eval forward at [36, 64600] and over a T 5120 clip, ms a
+     forward and the host's ms to enqueue one, beside the parent's
+     encoder on the same weights with ``--parent`` (old, new, new, old);
   3. the main path at full width: the flagship Detector (24 layers,
      1024/4096, 16 heads, bf16, dict 4096, k 128, use_pallas) with seeded
      random weights, scored through make_eval_step and produce_scores
@@ -44,7 +52,11 @@ Phases:
      kernel of the path must have launched once per batch and no other
      kernel at all (frontend_tail_fused included: on a card every eval
      forward of the 512-wide front-end takes it, whatever
-     fused_frontend says; train steps never do); the kernel path is
+     fused_frontend says; train steps never do), and layer_norm_fp32
+     2 x 24 + 3 times a batch (every eval forward of every phase: the
+     encoder's norms and the SAE classifier's, 2 x 24 + 2 under the SLS
+     head; never in a step with gradients; the exported programs of
+     phase 18 hold its op on a card); the kernel path is
      held against the plain versions end to end on a small input;
      utts/s of the eval step and of the score() path;
   4. serving: a BatchingEngine over build_scorer_from_params answers a
@@ -364,6 +376,15 @@ ROUTE_ENVELOPE = (1.5, 2.0)
 # further off than 1e-2 of max|plain| (one or two ulps at the largest).
 FRONTEND_ENVELOPE = 2.0
 FRONTEND_REL_TOL = 1e-2
+# Kernel row 11, the encoder's LayerNorm, against its plain version: the
+# same fp32 function with its row sums taken in another order, so a bf16
+# rounding near a tie may fall the other way, by one ulp; where the two
+# fp32 terms of an output (the normalised value times the scale, and the
+# bias) nearly cancel, the output's ulp is below the terms' own fp32
+# rounding, which this bounds (fp32 sums in another order, as the
+# front-end's F32 tests hold them), relative to |output| + 2 |bias|; an
+# fp32 output is held to it relative to the largest |output|
+LN_TERMS_TOL = 2e-5
 # int8 serving against the default path: the reference's own acceptance
 # (tests/test_int8.py): per-frame encoder-output cosine and P(bonafide)
 INT8_COS_MIN = 0.99
@@ -375,19 +396,38 @@ SAE_KERNELS = ("sae_encode_topk_fused", "sae_encode_fused", "topk_sparsify",
 ATTN_KERNELS = ("flash_attention_long", "sp_flash_attention_long", "fused_attention",
                 "fused_attention_heads", "flash_attention_long_relpos")
 FRONTEND_KERNELS = ("frontend_tail_fused",)
-KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS
+NORM_KERNELS = ("layer_norm_fp32",)
+KERNELS = SAE_KERNELS + ATTN_KERNELS + FRONTEND_KERNELS + NORM_KERNELS
 
 
+# the encoder's LayerNorms in one eval forward of the flagship's depth,
+# each one launch of kernel row 11 on a card: two a layer, the
+# post-extract and the final norm (a step with gradients: none)
+FLAGSHIP_LAYERS = 24
+ENCODER_NORMS = 2 * FLAGSHIP_LAYERS + 2
 # what an eval forward launches on a card beside its SAE and attention
 # kernels: the front-end tail (the encoder's route rule, fused_frontend
-# or not); a train step never
-EVAL_FRONTEND = {"frontend_tail_fused": 1}
+# or not), and row 11 for the encoder's norms and the SAE classifier's
+# (MeanPoolClassifier.norm); a train step never
+EVAL_FRONTEND = {"frontend_tail_fused": 1, "layer_norm_fp32": ENCODER_NORMS + 1}
+# a forward with no LayerNorm past the encoder's: the SLS head's, or
+# the SAE codes alone (the analysis commands' encode_sae)
+ENCODER_ONLY = {"layer_norm_fp32": ENCODER_NORMS}
+# the classifier on given codes (Detector.classify_codes) under no_grad:
+# its norm alone
+CLASSIFY = {"layer_norm_fp32": 1}
 
 
 def eval_launches(per_forward: dict, forwards: int) -> dict:
     """``forwards`` eval forwards' launches on a card: ``per_forward``'s
-    kernels (each count a forward) and the front-end tail once each."""
-    return {n: c * forwards for n, c in {**per_forward, **EVAL_FRONTEND}.items()}
+    kernels (each count a forward) and ``EVAL_FRONTEND``'s, where
+    ``per_forward`` does not set them."""
+    return {n: c * forwards for n, c in {**EVAL_FRONTEND, **per_forward}.items()}
+
+
+def add_launches(launches: dict, more: dict, times: int) -> dict:
+    """``launches`` and ``times`` x ``more``."""
+    return {n: launches.get(n, 0) + times * more.get(n, 0) for n in {*launches, *more}}
 
 
 def path_kernels(layers: int) -> dict:
@@ -410,7 +450,7 @@ OWN_KERNELS = ("cast_x_bf16_kernel", "cast_w_bf16_kernel", "encode_bf16_wgmma_ke
                "encode_tf32x3_kernel", "window_vote_kernel",
                "decode_stream_kernel", "attention_short_kernel", "attention_long_kernel",
                "attention_long_relpos_kernel", "frontend_ln0_bf16_kernel", "frontend_ln0_rows_bf16_kernel",
-               "frontend_conv_wgmma_kernel")
+               "frontend_conv_wgmma_kernel", "layernorm_rows_kernel")
 ATTN_KERNEL_NAMES = ("attention_short_kernel", "attention_long_kernel")
 LONG_CLIP_SECONDS = (4, 40, 90, 150)  # buckets T 256, 2560, 5120, 5120 x 2
 
@@ -563,14 +603,22 @@ def parent_wrapper(parent, module: str, name: str):
     return None if parent is None else getattr(parent[module], name)
 
 
+PARENT_NAMESPACE = "sls_tpu_torch_parent"  # the parent's custom ops under --parent
+
+
 def load_parent(root):
     """The parent commit's kernel wrapper modules, ``sae_kernels`` and
-    ``frontend``, imported from ``root``, a ``git archive`` of that
-    commit's ``sls_tpu_torch/``, so that phase 2 can time any row's
-    wrapper beside the kernel that replaces it (``--parent``).  They
+    ``frontend``, and its ``config`` and encoder (``xlsr``), imported
+    from ``root``, a ``git archive`` of that commit's ``sls_tpu_torch/``,
+    so that phase 2 can time any row's wrapper beside the kernel that
+    replaces it, and the encoder's forward beside this tree's
+    (``--parent``).  They
     build that commit's sources into ``root/build/`` at first use.  The
     port's own modules are set aside while the parent's import and put
-    back after."""
+    back after.  The parent's custom ops (``kernels/ops.py``) register
+    under ``PARENT_NAMESPACE``: under the port's own namespace they would
+    replace this tree's ops, and this tree's wrappers would then launch
+    the parent's kernels and count nothing."""
     import importlib
 
     root = Path(root).resolve()
@@ -581,8 +629,12 @@ def load_parent(root):
     saved = {name: sys.modules.pop(name) for name in list(sys.modules) if ours(name)}
     sys.path.insert(0, str(root))
     try:
+        if (root / "sls_tpu_torch" / "kernels" / "ops.py").exists():
+            importlib.import_module("sls_tpu_torch.kernels.ops").NAMESPACE = PARENT_NAMESPACE
         tk = importlib.import_module("sls_tpu_torch.kernels.sae_kernels")
         tf = importlib.import_module("sls_tpu_torch.kernels.frontend")
+        pc = importlib.import_module("sls_tpu_torch.config")
+        px = importlib.import_module("sls_tpu_torch.encoder.xlsr")
         check(Path(tk.__file__).resolve().is_relative_to(root),
               f"the parent's wrappers are imported from {root}")
     finally:
@@ -590,7 +642,7 @@ def load_parent(root):
         for name in [name for name in sys.modules if ours(name)]:
             del sys.modules[name]
         sys.modules.update(saved)
-    return {"sae_kernels": tk, "frontend": tf}
+    return {"sae_kernels": tk, "frontend": tf, "config": pc, "xlsr": px}
 
 
 def vote_bytes_moved(tk, batch, frames, m, blocks) -> float:
@@ -891,11 +943,12 @@ def phase_kernels(torch, tk, device, shape, iters, parent=None):
     return rows
 
 
-def bf16_ulps_exceeded(torch, out, ref) -> int:
-    """Elements of ``out`` further than one bf16 ulp of ``ref`` from it."""
+def bf16_ulps_exceeded(torch, out, ref, slack=0.0) -> int:
+    """Elements of ``out`` further than one bf16 ulp of ``ref`` (and
+    ``slack``) from it."""
     _, exp = torch.frexp(ref.float())
     ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
-    return int(((out.float() - ref.float()).abs() > ulp).sum())
+    return int(((out.float() - ref.float()).abs() > ulp + slack).sum())
 
 
 def phase_attention(torch, ta, device, long_shape, short_shape, iters):
@@ -1205,6 +1258,128 @@ def phase_frontend(torch, tf, xlsr, enc_cfg, wavs, device, iters, parent=None):
         f"kernel {row.get('parent_ms')} ms (old, new, new, old: "
         f"{row.get('parent_alternation_ms')})")
     return row
+
+
+def phase_layer_norm(torch, tln, device, shapes, iters):
+    """Kernel row 11, the encoder's LayerNorm, against its plain version
+    (the 14 passes every eval forward ran before it) on rows of a residual
+    stream's kind (offset mean, wide spread; the affine near its
+    initialisation) at each of ``shapes`` ([rows, width, dtype]), timed
+    beside the plain version, ``F.layer_norm`` on affines of the rows'
+    dtype (a yardstick only: the port never calls it) and its bound, the
+    rows read once and written once.  A bf16 output is held to one bf16
+    ulp of the plain one beyond the fp32 rounding (LN_TERMS_TOL) of the
+    two terms it sums, (x - mean) rstd scale and the bias, each at most
+    |ref| + |bias| (where they nearly cancel, the output's own ulp is
+    below their rounding); an fp32 one to LN_TERMS_TOL of the largest
+    |ref|."""
+    import torch.nn.functional as F
+
+    cases = []
+    for rows, width, dtype in shapes:
+        g = torch.Generator(device=device).manual_seed(rows + width)
+        x = (torch.randn(rows, width, device=device, generator=g) * 3 + 0.5).to(dtype)
+        w = torch.randn(width, device=device, generator=g) * 0.1 + 1
+        b = torch.randn(width, device=device, generator=g) * 0.1
+        name = str(dtype).removeprefix("torch.")
+        with torch.inference_mode():
+            out = tln.layer_norm_fp32(x, w, b, 1e-5)
+            sync(torch, device)
+            ref = tln.layer_norm_fp32_plain(x, w, b, 1e-5)
+            err = float((out.float() - ref.float()).abs().max())
+            case = {"shape": [rows, width], "dtype": name, "max_abs_err": err,
+                    "elements": out.numel()}
+            if dtype == torch.bfloat16:
+                terms = LN_TERMS_TOL * (ref.float().abs() + 2 * b.abs())
+                beyond = bf16_ulps_exceeded(torch, out, ref, terms)
+                check(beyond == 0, f"layer_norm_fp32 at {[rows, width]} bf16 within one bf16 "
+                                   f"ulp of its plain version ({beyond} elements beyond)")
+                case["elements_beyond_one_bf16_ulp"] = bf16_ulps_exceeded(torch, out, ref)
+                case["elements_beyond_one_ulp_and_terms"] = beyond
+            else:
+                tol = LN_TERMS_TOL * float(ref.abs().max())
+                check(err <= tol, f"layer_norm_fp32 at {[rows, width]} {name} within {tol:.3e} "
+                                  f"of its plain version ({err:.3e})")
+                case["tolerance"] = tol
+            wl, bl = w.to(dtype), b.to(dtype)
+            bytes_ = 2.0 * x.numel() * x.element_size()
+            bound_ms, by = bound(bytes_, 0.0, PEAK_FP32_FLOPS)
+            case.update({
+                "ms": timed(torch, lambda: tln.layer_norm_fp32(x, w, b, 1e-5), device, iters),
+                "plain_ms": timed(torch, lambda: tln.layer_norm_fp32_plain(x, w, b, 1e-5),
+                                  device, iters),
+                "library_ms": timed(torch, lambda: F.layer_norm(x, (width,), wl, bl, 1e-5),
+                                    device, iters),
+                # replayed from a CUDA graph: the device's time alone (a
+                # call's host cost is several times the kernel's)
+                "device_ms": graph_timed(torch, lambda: tln.layer_norm_fp32(x, w, b, 1e-5),
+                                         device, iters),
+                "library_device_ms": graph_timed(
+                    torch, lambda: F.layer_norm(x, (width,), wl, bl, 1e-5), device, iters),
+                "bound_ms": bound_ms, "bound_by": by, "bytes": bytes_,
+            })
+        log(f"layer_norm_fp32 {case['shape']} {name}: {case['ms']:.4f} ms (graph-replayed "
+            f"{case['device_ms']} ms), plain {case['plain_ms']:.4f} ms, F.layer_norm "
+            f"{case['library_ms']:.4f} ms ({case['library_device_ms']} ms), bound "
+            f"{bound_ms:.4f} ms ({by}); max_abs_err {err:.3e}"
+            + (f", {case['elements_beyond_one_bf16_ulp']} of {out.numel()} elements beyond one "
+               "bf16 ulp, none beyond it and the terms' fp32 rounding"
+               if dtype == torch.bfloat16 else f" within {case['tolerance']:.3e}"))
+        cases.append(case)
+        del x, out, ref
+    return {"name": "layer_norm_fp32", "route": "cuda",
+            "source": "sls_tpu_torch/kernels/csrc/layer_norm.cu",
+            "replaces": "none (the encoder's fp32 LayerNorm; XLA fuses it on the TPU)",
+            **cases[0], "kernel_ms": cases[0]["ms"],
+            "tolerance": "bf16: one bf16 ulp beyond the terms' fp32 rounding; fp32: "
+                         "LN_TERMS_TOL of the largest |ref|",
+            "cases": cases}
+
+
+def phase_encoder_forward(torch, xlsr, enc_cfg, shapes, device, iters, parent=None):
+    """The encoder's eval forward at each of ``shapes`` ([rows, samples])
+    on seeded weights: ms a forward on the card's clock (CUDA events over
+    ``iters`` forwards: the host's launches where they bind) and the
+    host's ms to enqueue one forward onto an idle card (the median of
+    five); with ``parent`` that commit's encoder on the same weights
+    beside it, the forwards in turns (old, new, new, old).  What both
+    LayerNorm routes cost a whole forward."""
+    enc = xlsr.XLSREncoder(enc_cfg, device)
+    xlsr.init_weights_(enc, torch.Generator(device=device).manual_seed(4))
+    old = None
+    if parent is not None:
+        pcfg = parent["config"].XLSRConfig(**{f.name: getattr(enc_cfg, f.name)
+                                              for f in dataclasses.fields(enc_cfg)})
+        old = parent["xlsr"].XLSREncoder(pcfg, device)
+        old.load_state_dict(enc.state_dict(), strict=True)
+
+    def enqueue_ms(fn):
+        runs = []
+        for _ in range(5):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            sync(torch, device)
+        return sorted(runs)[2]
+
+    cases = []
+    for rows, samples in shapes:
+        wav = torch.randn(rows, samples, device=device,
+                          generator=torch.Generator(device=device).manual_seed(samples)) * 0.1
+        with torch.inference_mode():
+            case = {"shape": [rows, samples], "frames": enc_cfg.num_frames(samples)}
+            new_fn = lambda: enc(wav)  # noqa: E731
+            old_fn = old and (lambda: old(wav))
+            time_row(torch, case, new_fn, old_fn, device, iters)
+            case["enqueue_ms"] = enqueue_ms(new_fn)
+            if old is not None:
+                case["parent_enqueue_ms"] = enqueue_ms(old_fn)
+                out, ref = enc(wav).float(), old(wav).float()
+                case["rel_l2_vs_parent"] = rel_l2(out, ref)
+        log(f"encoder forward {case['shape']} (T {case['frames']}): {json.dumps(case)}")
+        cases.append(case)
+    return cases
 
 
 def device_time_by_kernel(fn, reps: int = 3, top: int = 15) -> dict:
@@ -2126,10 +2301,10 @@ def phase_sls(torch, device, enc_cfg, cut: int, batch: int, wire, wavs, seed: in
     check(written == len(wire) and len(ids) == len(wire), "one SLS score line per utterance")
     check(bool(np.all(np.isfinite(scores)) and np.all((scores >= 0) & (scores <= 1))),
           "every SLS score is finite and in [0, 1]")
-    want = eval_launches({}, loader.num_batches()) if on_card else {}
+    want = eval_launches(ENCODER_ONLY, loader.num_batches()) if on_card else {}
     check(launches == {n: want.get(n, 0) for n in launches},
-          f"the SLS eval path launches no hand-written kernel but the front-end tail, once a "
-          f"batch on a card: {launches}")
+          f"the SLS eval path launches no hand-written kernel but the front-end tail and the "
+          f"encoder's LayerNorm, a batch on a card: {launches}")
     reps = 10 if on_card else 1
     batch_wire = wire[:batch]
     step(batch_wire)
@@ -2284,10 +2459,10 @@ def phase_sls(torch, device, enc_cfg, cut: int, batch: int, wire, wavs, seed: in
                           seed=seed), val_loader, num_epochs=1)
         fit_s = time.perf_counter() - t0
         launched = counts()
-        want = eval_launches({}, val_loader.num_batches()) if on_card else {}
+        want = eval_launches(ENCODER_ONLY, val_loader.num_batches()) if on_card else {}
         check(launched == {n: want.get(n, 0) for n in launched},
-              f"SLSTrainer.fit launches no kernel but the front-end tail, once a validation "
-              f"batch on a card: {launched}")
+              f"SLSTrainer.fit launches no kernel but the front-end tail and the encoder's "
+              f"LayerNorm, a validation batch on a card: {launched}")
         rows = csv_rows(work / "a")
         check(len(rows) == 1 and rows[0]["epoch"] == "0", "one SLS CSV row for epoch 0")
         check(all(math.isfinite(float(rows[0][k])) for k in ("train_loss", "val_loss",
@@ -2960,8 +3135,8 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
         vals = min(5, -(-n_dev // train_batch))
         if on_card:
             want_only("cli.main training", launches["cli_train"],
-                      {"sae_encode_topk_fused": steps + vals, "sae_decode_fused": steps + vals,
-                       "frontend_tail_fused": vals})
+                      {**eval_launches({}, vals), "sae_encode_topk_fused": steps + vals,
+                       "sae_decode_fused": steps + vals})
         check(run_dir.is_dir() and sorted(p.name for p in train_models.iterdir()) == [tag],
               f"the run directory is <model_dir>/{tag}")
         rows = cli_monitor.read_log(run_dir)
@@ -2999,16 +3174,17 @@ def phase_cli(torch, device, model, exp, batch: int, seed: int, counts, zero_cou
             torch.cuda.empty_cache()
         export_res = {}
         wire_batch = to_wire(synthetic_wavs(batch, cut, seed + 19), "int16")
-        # on a card every program's front-end is the frontend_tail op
-        frontend_op = ["frontend_tail"] if on_card else []
+        # on a card every program's front-end is the frontend_tail op, and
+        # its LayerNorms the layer_norm op
+        frontend_op = ["frontend_tail", "layer_norm"] if on_card else []
         for name, run, extra, want_ops, per_call in (
                 ("flagship", work / "flagship_run", [],
                  frontend_op + ["sae_decode", "sae_encode_topk"],
                  eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, 1)),
-                ("routes", work / "routes_run", [], ["frontend_tail", "fused_attention",
-                                                     "sae_decode", "sae_encode_topk"],
-                 {"sae_encode_topk_fused": 1, "sae_decode_fused": 1, "frontend_tail_fused": 1,
-                  "fused_attention": cfg18.model.encoder.encoder_layers}),
+                ("routes", work / "routes_run", [], ["frontend_tail", "fused_attention"]
+                 + (["layer_norm"] if on_card else []) + ["sae_decode", "sae_encode_topk"],
+                 eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1,
+                                "fused_attention": cfg18.model.encoder.encoder_layers}, 1)),
                 ("window_overlap", work / "window_run", [],
                  frontend_op + ["sae_decode", "sae_encode", "window_vote"],
                  eval_launches({"sae_encode_fused": 1, "window_vote_fused": 1,
@@ -3359,13 +3535,18 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     want_pngs = sorted(f for names in ANALYSIS_FIGURES.values() for f in names) if figures else []
     check(pngs == want_pngs, f"the report's figures {pngs}, want {want_pngs}")
     n = collect_batches(n_report, b_report)
-    encode_only = eval_launches({"sae_encode_topk_fused": 1}, n)
+    encode_only = eval_launches({"sae_encode_topk_fused": 1, **ENCODER_ONLY}, n)
     want = {s: encode_only for s in sections}
     want["inspect"] = eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, 1)
     want["overlap"] = eval_launches({"sae_encode_topk_fused": 1, "sae_decode_fused": 1}, n)
+    # the classifier on the collected codes: once to judge them (failure);
+    # on them and on their ablated copies, one chunk (attribution; its
+    # gradients take the plain route)
+    for s, calls in (("failure", 1), ("attribution", 2)):
+        want[s] = add_launches(encode_only, CLASSIFY, calls)
     # both runs' forwards: the flagship's and the window-overlap's
     want["compare"] = {"sae_encode_topk_fused": n, "sae_encode_fused": n, "window_vote_fused": n,
-                       "frontend_tail_fused": 2 * n}
+                       **eval_launches(ENCODER_ONLY, 2 * n)}
     if on_card:
         for s in sections:
             want_only(f"cli.report section {s}", per_section[s], want[s])
@@ -3396,7 +3577,8 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     check(all(np.isfinite(attr["ablation"]["mean_prob_drop"])), "finite ablation drops")
     if on_card:
         want_only("cli.analyze attribution", launches["cli_analyze_attribution"],
-                  eval_launches({"sae_encode_topk_fused": 1}, collect_batches(n_cli, b_cli)))
+                  add_launches(eval_launches({"sae_encode_topk_fused": 1, **ENCODER_ONLY},
+                                             collect_batches(n_cli, b_cli)), CLASSIFY, 2))
     res["attribution_cli"] = {
         "seconds": attr_s, "samples": n_cli, "batch": b_cli,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
@@ -3433,7 +3615,8 @@ def phase_analysis(torch, device, model, cfg18, work: Path, seed: int, counts, z
     check((work / "gates_figures" / "layer_gates.png").exists() == figures,
           "gates draws layer_gates.png where matplotlib is installed")
     if on_card:
-        want_only("cli.analyze gates", launches["cli_analyze_gates"], eval_launches({}, 1))
+        want_only("cli.analyze gates", launches["cli_analyze_gates"],
+                  eval_launches(ENCODER_ONLY, 1))
     res["gates_cli"] = {"seconds": gates_s, "samples": n_gates,
                         "most_sensitive_layers": gates["most_sensitive_layers"],
                         "launches": launches["cli_analyze_gates"]}
@@ -3714,7 +3897,10 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
                                 device="meta", cut_length=cut)
             sls_f.load_state_dict(sls_m.state_dict(), strict=True, assign=True)
             sls_one = {}
-            with torch.no_grad():
+            # autograd on, as in the step: under no_grad the encoder's
+            # LayerNorms take row 11 and the step's take the plain passes
+            # (one bf16 ulp apart), as phase 16 (b) computes its statistics
+            with torch.enable_grad():
                 w_, y_, v_ = on_dev(gb_c)
                 for key, m_ in (("bf16", sls_m), ("fp32_encoder", sls_f)):
                     out = m_(dequantize_wire(w_), train=True,
@@ -3888,9 +4074,9 @@ def phase_parallel(torch, tk, device, model, exp, wavs, batch: int, seed: int, c
         if on_card:
             for r in d:
                 want_only("Trainer epoch, one rank", r["launches"],
-                          {"sae_encode_topk_fused": steps_a_rank + val_a_rank,
-                           "sae_decode_fused": steps_a_rank + val_a_rank,
-                           "frontend_tail_fused": val_a_rank})
+                          {**eval_launches({}, val_a_rank),
+                           "sae_encode_topk_fused": steps_a_rank + val_a_rank,
+                           "sae_decode_fused": steps_a_rank + val_a_rank})
         launches_by_path["dp_trainer"] = {n: sum(r["launches"][n] for r in d) for n in KERNELS}
         shutil.rmtree(run)
 
@@ -3991,8 +4177,8 @@ def main(argv=None) -> int:
                          "serving over several devices (a partial run: no result lines)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of another commit's sls_tpu_torch/ (e.g. the "
-                         "parent's): phase 2 times its wrappers of rows 1-5 and 8 beside "
-                         "this tree's")
+                         "parent's): phase 2 times its wrappers of rows 1-5 and 8 and its "
+                         "encoder's forward beside this tree's")
     args = ap.parse_args(argv)
 
     import torch
@@ -4015,6 +4201,7 @@ def main(argv=None) -> int:
     from sls_tpu_torch.kernels import attention as ta
     from sls_tpu_torch.kernels import build
     from sls_tpu_torch.kernels import frontend as tf
+    from sls_tpu_torch.kernels import layer_norm as tln
     from sls_tpu_torch.kernels import sae_kernels as tk
     from sls_tpu_torch.models.detector import Detector
     from sls_tpu_torch.parallel import distributed as dist
@@ -4078,7 +4265,7 @@ def main(argv=None) -> int:
     frames = enc_cfg.num_frames(cut)
 
     modules = {**{n: tk for n in SAE_KERNELS}, **{n: ta for n in ATTN_KERNELS},
-               **{n: tf for n in FRONTEND_KERNELS}}
+               **{n: tf for n in FRONTEND_KERNELS}, **{n: tln for n in NORM_KERNELS}}
     wrappers = {name: getattr(modules[name], name) for name in KERNELS}
 
     def zero_counts():
@@ -4135,6 +4322,19 @@ def main(argv=None) -> int:
         f"samples, {enc_cfg.conv_layers[0][0]} channels, {enc_cfg.dtype}")
     rows.append(phase_frontend(torch, tf, xlsr, enc_cfg, wavs[:batch], device,
                                iters=20 if on_card else 2, parent=parent))
+    long_samples = ev.length_buckets(enc_cfg, long_targets)[long_targets[-1]]
+    ln_shapes = ((batch * frames, enc_cfg.embed_dim, torch.bfloat16),
+                 (long_targets[-1], enc_cfg.embed_dim, torch.bfloat16),
+                 (batch * frames, enc_cfg.conv_layers[-1][0], torch.bfloat16),
+                 (batch, sae_cfg.dict_size, torch.float32))
+    log(f"phase 2: the encoder's LayerNorm (kernel row 11) at [rows, width, dtype] "
+        f"{ln_shapes}: the layers' and final norms, post_extract_norm and the head's norm")
+    rows.append(phase_layer_norm(torch, tln, device, ln_shapes, iters=20 if on_card else 2))
+    log(f"phase 2: the encoder's eval forward at [{batch}, {cut}] and [1, {long_samples}]"
+        + (" beside the parent's" if parent else ""))
+    encoder_forward = phase_encoder_forward(
+        torch, xlsr, enc_cfg, ((batch, cut), (1, long_samples)), device,
+        iters=10 if on_card else 1, parent=parent)
     per_batch = path_kernels(enc_cfg.encoder_layers)
 
     reps = 10 if on_card else 1
@@ -4203,7 +4403,8 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 return model.score(dequantize_wire(torch.from_numpy(w).to(device)))
 
-        res = {"launches": launches, "eval_utts_per_s": throughput(step),
+        res = {"launches": launches,
+               "eval_utts_per_s": throughput(step),
                "score_utts_per_s": throughput(score_only), "scores": dict(zip(ids, scores))}
         log(f"{label} throughput at batch {batch}: eval step {res['eval_utts_per_s']:.1f} "
             f"utts/s, score() {res['score_utts_per_s']:.1f} utts/s")
@@ -4651,11 +4852,16 @@ def main(argv=None) -> int:
               f"rank {r}: sp_flash_attention_long called {want_calls} times over the jobs")
         if not on_card:
             continue
-        for j, clips_ in ((0, base), (1, base[3:])):
-            for (utt, _, t_bucket), delta in zip(clips_, rank[j]["per_clip"]):
+        for j, clips_ in ((0, long_clips), (1, long_clips[3:])):
+            n_seq, n_data = SP_MESHES[j]
+            for (utt, wav), delta in zip(clips_, rank[j]["per_clip"]):
+                rows_, t_bucket = ev.unwindowed_batch(wav, buckets)
                 want = {n: 0 for n in KERNELS}
                 want.update(EVAL_FRONTEND)
-                want["sp_flash_attention_long"] = sp_layers(t_bucket, SP_MESHES[j][0])
+                want["sp_flash_attention_long"] = sp_layers(t_bucket, n_seq)
+                # a rank's frames of two rows or more are a view with no one
+                # row stride: the first layer's first norm takes the plain passes
+                want["layer_norm_fp32"] -= len(rows_) // n_data > 1
                 check(delta == want, f"rank {r}, job {j}, {utt}: launches {delta}, want {want}")
     f_sp = torch.from_numpy(ranks[0][2]["features"]).to(device)
     sp_l2 = {"sp_route_vs_einsum_route": rel_l2(f_sp, envelope_rows[1]),
@@ -4711,8 +4917,8 @@ def main(argv=None) -> int:
     if on_card:
         for r, rank in enumerate(ranks):
             want = {n: 0 for n in KERNELS}
-            for n in per_batch["flagship"]:
-                want[n] = -(-rank["local"] // batch)
+            for n, c in per_batch["flagship"].items():
+                want[n] = c * -(-rank["local"] // batch)
             check(rank["launches"] == want, f"rank {r}: launches {rank['launches']}, want {want}")
     results["multi_process_scores"] = {"launches": ranks[0]["launches"]}
 
@@ -4983,9 +5189,9 @@ def main(argv=None) -> int:
         fit_steps, val_batches = train_loader.num_batches(), val_loader.num_batches()
         if on_card:
             want_only("Trainer.fit, one epoch", launches,
-                      {"sae_encode_topk_fused": fit_steps + val_batches,
-                       "sae_decode_fused": fit_steps + val_batches,
-                       "frontend_tail_fused": val_batches})
+                      {**eval_launches({}, val_batches),
+                       "sae_encode_topk_fused": fit_steps + val_batches,
+                       "sae_decode_fused": fit_steps + val_batches})
         rows_a = csv_rows(work / "a")
         check(len(rows_a) == 1 and rows_a[0]["epoch"] == "0", "one CSV row for epoch 0")
         check(all(math.isfinite(float(rows_a[0][k])) for k in ("train_loss", "train_cls_loss",
@@ -5185,7 +5391,7 @@ def main(argv=None) -> int:
         "envelope_rel_l2", "strips_vs_whole_max_abs", "strips_bit_equal", "rel_l2_vs_fp64",
         "plain_rel_l2_vs_fp64", "fp64_ratio_worst_small_n", "split_ms", "cast_ms", "gemm_ms",
         "select_ms", "ln0_ms", "streamed_form",
-        "ln0_channels_first_ms", "parent_ms",
+        "ln0_channels_first_ms", "parent_ms", "elements_beyond_one_ulp_and_terms",
         "parent_alternation_ms", "row6_ms", "ratio_to_row6", "faults_max_abs") if key in row}
         for row in rows]
     batch_paths = [label for label in results if "eval_utts_per_s" in results[label]]
@@ -5195,6 +5401,7 @@ def main(argv=None) -> int:
                                   "log_probs_max_abs", "long_t", "front_end_device_ms",
                                   "against_default") if key in results[label]}
                                   for label in batch_paths},
+                              "encoder_forward": encoder_forward,
                               "long_clip": long_res, "sequence_parallel": sp_res,
                               "train": train_res, "trainer": trainer_res,
                               "offline": offline_res, "sls": sls_res, "cpc": cpc_res,

@@ -20,7 +20,12 @@ with ``fused_frontend`` set (its plain version; the reference's default
 route is unfused).  ``int8_serving`` runs fc1/fc2 (and with
 ``int8_scope="all"`` the attention projections) through ``int8_dot``.
 ``grouped_conv_einsum`` computes the pos-conv as per-tap block-diagonal
-einsums on the conv's own weight.
+einsums on the conv's own weight.  Every ``Fp32LayerNorm`` (two a layer,
+the post-extract and final norms, the head's) runs on a card as one
+launch of ``layer_norm_fp32`` (``kernels/layer_norm.py``) wherever
+autograd records nothing through it: every eval forward, and a frozen
+encoder's inside a train step; with gradients, and off the card, its
+plain passes.
 
 WavLM (``WavLMConfig``; unilm's ``wavlm/modules.py`` at eval) adds a
 gated relative-position bias to every layer's fp32 scores:
@@ -106,9 +111,15 @@ from sls_tpu_torch.kernels.frontend import (
     CHANNELS,
     DTYPES,
     choose_tile,
-    fp32_layer_norm,
     frontend_tail_fused,
     tail_lengths,
+)
+from sls_tpu_torch.kernels.layer_norm import (
+    kernel_row_stride,
+    layer_norm_fp32,
+    layer_norm_fp32_plain,
+    records_grad,
+    takes_kernel,
 )
 from sls_tpu_torch.parallel.mesh import Mesh, SeqShard
 from sls_tpu_torch.parallel.tensor import column_linear, cut_dropout, row_linear
@@ -151,7 +162,12 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
 
 
 class Fp32LayerNorm(nn.Module):
-    """LayerNorm computed in fp32 regardless of the input dtype."""
+    """LayerNorm computed in fp32 regardless of the input dtype, rounded to
+    it.  On a card, wherever autograd records nothing through the call and
+    the kernel takes the rows, one launch of ``layer_norm_fp32``
+    (``kernels/layer_norm.py::takes_kernel``); else the plain passes.
+    Each call counts its route: ``sls.layernorm.kernel`` or
+    ``sls.layernorm.plain``."""
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -160,7 +176,14 @@ class Fp32LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fp32_layer_norm(x.float(), self.weight, self.bias, self.eps).to(x.dtype)
+        w, b = self.weight, self.bias
+        on_card = x.is_cuda
+        if takes_kernel(on_card, records_grad(x, w, b), x.dtype, x.shape[-1],
+                        kernel_row_stride(x) if on_card else None):
+            count("sls.layernorm.kernel")
+            return layer_norm_fp32(x, w, b, self.eps)
+        count("sls.layernorm.plain")
+        return layer_norm_fp32_plain(x, w, b, self.eps)
 
 
 class Dense(nn.Module):

@@ -18,8 +18,9 @@ wrapper calls the custom op ``sls_tpu_torch::frontend_tail``
 CPU and launches the kernel for a CUDA tensor or raises; there is no
 fallback.  ``frontend_tail_fused.launches`` counts calls that launched.
 ``tail_lengths``, ``required_input``, ``choose_tile`` and
-``fp32_layer_norm`` are own copies of the reference's helpers (the
-encoder imports ``fp32_layer_norm`` from here).
+``fp32_layer_norm`` are own copies of the reference's helpers
+(``kernels/layer_norm.py``'s plain version, the encoder's LayerNorm, is
+``fp32_layer_norm``).
 """
 
 from __future__ import annotations

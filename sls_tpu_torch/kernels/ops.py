@@ -1,6 +1,6 @@
 """The serving kernels as ``torch.library`` custom ops.
 
-Rows 1, 2, 3, 5, 8 and 9 of the kernel table (every kernel a
+Rows 1, 2, 3, 5, 8, 9 and 11 of the kernel table (every kernel a
 fixed-shape serving forward can reach) are registered under the
 ``sls_tpu_torch`` namespace, so that ``torch.export`` keeps each one in a
 serving program as a call of its own (``serve/export.py``) instead of
@@ -12,8 +12,8 @@ tracing into it:
 - the fake implementation gives the output's shape and dtype alone.
 
 Each wrapper (``kernels/sae_kernels.py``, ``frontend.py``,
-``attention.py``) keeps its name and signature and calls its op; the
-registrations run when those modules are imported, and
+``attention.py``, ``layer_norm.py``) keeps its name and signature and
+calls its op; the registrations run when those modules are imported, and
 ``register_all`` imports them.  Rows 4 and 10 (tests only) and 6 and 7
 (long clips, never in a fixed-cut program) are not ops.
 """
@@ -26,10 +26,10 @@ import torch
 
 NAMESPACE = "sls_tpu_torch"
 # the ops, called by sae_kernels.sae_encode_topk_fused, sae_encode_fused,
-# window_vote_fused, sae_decode_fused, frontend.frontend_tail_fused and
-# attention.fused_attention
+# window_vote_fused, sae_decode_fused, frontend.frontend_tail_fused,
+# attention.fused_attention and layer_norm.layer_norm_fp32
 OPS = ("sae_encode_topk", "sae_encode", "window_vote", "sae_decode", "frontend_tail",
-       "fused_attention")
+       "fused_attention", "layer_norm")
 
 
 def define(name: str, schema: str, *, cuda: Callable, cpu: Callable, fake: Callable):
@@ -45,6 +45,6 @@ def define(name: str, schema: str, *, cuda: Callable, cpu: Callable, fake: Calla
 def register_all() -> Tuple[str, ...]:
     """Import the kernel modules, which register every op; returns the
     ops' qualified names."""
-    from sls_tpu_torch.kernels import attention, frontend, sae_kernels  # noqa: F401
+    from sls_tpu_torch.kernels import attention, frontend, layer_norm, sae_kernels  # noqa: F401
 
     return tuple(f"{NAMESPACE}::{name}" for name in OPS)

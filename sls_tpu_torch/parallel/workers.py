@@ -33,7 +33,7 @@ import torch
 
 from sls_tpu_torch.data.pipeline import ArrayLoader
 from sls_tpu_torch.evaluation.overlap import score_utterances_unwindowed
-from sls_tpu_torch.kernels import attention, frontend, sae_kernels
+from sls_tpu_torch.kernels import attention, frontend, layer_norm, sae_kernels
 from sls_tpu_torch.models.detector import Detector
 from sls_tpu_torch.parallel import distributed as dist
 from sls_tpu_torch.parallel.mesh import SeqShard
@@ -45,7 +45,7 @@ from sls_tpu_torch.train.steps import make_eval_step
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count in this process, by name."""
     return {name: fn.launches
-            for module in (sae_kernels, attention, frontend)
+            for module in (sae_kernels, attention, frontend, layer_norm)
             for name, fn in vars(module).items()
             if callable(fn) and hasattr(fn, "launches")}
 

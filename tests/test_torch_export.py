@@ -227,6 +227,8 @@ def _op_args(name):
         return (t(6, M, positive=True), t(M, D), t(D))
     if name == "fused_attention":
         return (t(2, 9, 4, 16), t(2, 9, 4, 16), t(2, 9, 4, 16))
+    if name == "layer_norm":
+        return (t(2, 9, 16).to(torch.bfloat16), t(16), t(16), 1e-5)
     specs = ((3, 2), (2, 2))
     c = 8
     return (t(2, 40, c), [t(k, c, c) for k, _ in specs], t(2, c), t(3, c), t(3, c),

@@ -391,21 +391,24 @@ def test_route_rule(kind, flag, on_card, train, length):
 def test_forward_counts_its_route(flag):
     """One CPU forward of the encoder under recording counts its front-end
     route once: unfused at the default config, the kernel route (its plain
-    version here) with the flag."""
+    version here) with the flag.  Its LayerNorms count their own (plain)
+    route: post-extract, two a layer and the final norm, and the unfused
+    front-end's conv norms."""
     from sls_tpu_torch.encoder.xlsr import XLSREncoder
     from sls_tpu_torch.train import profiling
 
-    enc = XLSREncoder(tcfg.tiny_xlsr_config(conv_layers=FUSED_TINY, fused_frontend=flag),
-                      device="cpu")
+    cfg = tcfg.tiny_xlsr_config(conv_layers=FUSED_TINY, fused_frontend=flag)
+    enc = XLSREncoder(cfg, device="cpu")
     wav = torch.randn(2, 6405, generator=torch.Generator().manual_seed(9))
     with torch.inference_mode(), profiling.recording() as rec:
         enc(wav)
     route = "sls.frontend.kernel" if flag else "sls.frontend.unfused"
     assert {k: v for k, v in rec.counts.items() if k.startswith("sls.frontend")} == {route: 1}
     assert [s.name for s in rec.spans] == ["sls.frontend", "sls.layers"]
+    norms = 2 * cfg.encoder_layers + 2 + (0 if flag else len(cfg.conv_layers))
     with torch.inference_mode():
         enc(wav)  # recording off: nothing is held
-    assert rec.counts == {route: 1}
+    assert rec.counts == {route: 1, "sls.layernorm.plain": norms}
 
 
 # -- (f) on a card: the kernel against its plain version -------------------------
